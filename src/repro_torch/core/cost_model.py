@@ -1,14 +1,31 @@
 """Cost models f(S) for Batch Post-Balancing (paper Eq. 1, Eq. 2, App. A).
 
-A copy of the parts of ``repro.core.cost_model`` that the serving
-scheduler uses: :class:`CostModel`, :class:`ServingCostModel`,
-:func:`transformer_cost_coeffs` and :func:`serving_cost_model`.
+(A copy of ``repro.core.cost_model``, with the port's imports.)
+
+A *batch* here is a collection of example sequence lengths assigned to one
+DP instance for one phase.  The balancing objective is
+
+    minimize over rearrangements Pi of   max_i f(S'_i(Pi))
+
+where ``f`` models the compute (and, proportionally, memory) cost of the
+batch on its instance.  The paper gives:
+
+  Eq. (1)  batch length   L = b * max(l)      (padding)
+                          L = sum(l)          (no padding)
 
   Eq. (2)  transformer    f = alpha*L + beta * L^2 / b          (padding)
                           f = alpha*L + beta * sum(l_j^2)       (no padding)
 
   App. A   conv-transformer (padded attention, unpadded batch):
                           f = L + lambda * b * max(l)^2
+
+``alpha`` is the per-token linear cost (MLP + projections), ``beta`` the
+quadratic attention coefficient.  For an architecture with hidden size H,
+FFN size F, #layers N, per-token FLOPs scale like
+``alpha ~ N*(8H^2 + 4HF(+MoE top-k scaling))`` and per-pair attention
+FLOPs like ``beta ~ 4*N*H`` -- so ``beta/alpha ~ 1/(2H + F)``, i.e. the
+paper's beta << alpha assumption holds until sequence lengths approach
+the model width.  SSM (Mamba) layers have NO quadratic term (beta = 0).
 """
 from __future__ import annotations
 
@@ -22,7 +39,11 @@ __all__ = [
     "FEATURE_NAMES",
     "N_FEATURES",
     "ServingCostModel",
+    "batch_length",
+    "encoder_cost_model",
     "length_features",
+    "llm_cost_model",
+    "phase_flops_per_unit",
     "serving_cost_model",
     "transformer_cost_coeffs",
 ]
@@ -56,6 +77,16 @@ def _segment_max(values: np.ndarray, ids: np.ndarray, n_segments: int) -> np.nda
     out = np.zeros(n_segments, dtype=np.float64)
     np.maximum.at(out, ids, values)
     return out
+
+
+def batch_length(lengths: Sequence[int] | np.ndarray, padding: bool) -> int:
+    """Paper Eq. (1): the batch length L of a mini-batch."""
+    arr = np.asarray(lengths, dtype=np.int64)
+    if arr.size == 0:
+        return 0
+    if padding:
+        return int(arr.size * arr.max())
+    return int(arr.sum())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,6 +288,60 @@ def transformer_cost_coeffs(
     alpha = 1.0
     beta = quad / lin
     return alpha, beta
+
+
+# ---------------------------------------------------------------------------
+# Analytic cost-model derivation.  ONE home for hand-building CostModels
+# from a config: the orchestrator's per-phase dispatchers, the serving
+# scheduler, and the telemetry priors all route through these three
+# helpers, so calibrated coefficients have a single injection point
+# (``CostModel.with_coeffs`` on the helpers' output).
+
+
+def phase_flops_per_unit(cfg) -> dict[str, float]:
+    """Raw forward FLOPs behind ONE normalized cost unit, per phase.
+
+    Every phase's :class:`CostModel` is normalized to ``alpha = 1`` (only
+    the alpha/beta ratio matters for balancing *within* a phase), which
+    makes costs from different phases incommensurable.  The pipeline
+    scheduler (:mod:`repro.core.pipeline`) must place encoder microbatch
+    compute against LLM stage compute on ONE clock, so it needs the
+    un-normalized linear coefficient: per-token matmul FLOPs
+    ``lin = N * (8H^2 + 6HF)`` from :func:`transformer_cost_coeffs`.
+    ``cost * lin`` restores raw FLOPs (the quadratic term scales along,
+    since ``beta = quad/lin``).  Keyed ``"llm"`` plus each encoder name.
+    """
+    moe_k = cfg.experts_per_token if cfg.family == "moe" else 1
+    out = {
+        "llm": cfg.n_layers
+        * (8.0 * cfg.d_model**2
+           + 6.0 * cfg.d_model * max(cfg.d_ff, 1) * max(moe_k, 1))
+    }
+    for e in cfg.encoders:
+        out[e.name] = max(e.n_layers, 1) * (
+            8.0 * e.d_model**2 + 6.0 * e.d_model * e.d_ff)
+    return out
+
+
+def llm_cost_model(cfg) -> CostModel:
+    """f(S) of the LLM backbone phase (cfg: ModelConfig)."""
+    if cfg.family in ("ssm", "hybrid"):
+        # No (or windowed) quadratic term; balancing on token sums.
+        return CostModel(alpha=1.0, beta=0.0)
+    moe_k = cfg.experts_per_token if cfg.family == "moe" else 1
+    a, b = transformer_cost_coeffs(
+        cfg.d_model, max(cfg.d_ff, 1), cfg.n_layers,
+        moe_experts_active=max(moe_k, 1),
+    )
+    return CostModel(alpha=a, beta=b)
+
+
+def encoder_cost_model(e) -> CostModel:
+    """f(S) of one encoder phase (e: EncoderConfig)."""
+    a, b = transformer_cost_coeffs(e.d_model, e.d_ff, max(e.n_layers, 1))
+    if e.conv_attention:
+        return CostModel(alpha=a, beta=b, conv_attention=True)
+    return CostModel(alpha=a, beta=b, padding=e.padded)
 
 
 def serving_cost_model(cfg) -> ServingCostModel:

@@ -1,5 +1,6 @@
-"""Segment-aware flash attention forward: the CUDA kernel and its plain
-PyTorch version (``repro.kernels.flash_attention`` in the port).
+"""Segment-aware flash attention, forward and backward: the CUDA kernels,
+their plain PyTorch versions and the ``autograd.Function`` that joins
+them (``repro.kernels.flash_attention`` in the port).
 
 Layout as in the JAX package: q ``[B, H, Tq, D]``, k/v ``[B, Hkv, Tkv,
 D]`` (q head h reads KV head ``h // (H // Hkv)``), seg/pos ``[B, T]``
@@ -12,12 +13,20 @@ out in the dtype of q, lse ``[B, H, Tq]`` fp32, 0 on fully-masked rows.
 * :func:`flash_attention_fwd` -- the hand-written CUDA kernel
   ``csrc/flash_fwd.cu``, which replaces the Pallas ``_fwd_kernel``
   (``src/repro/kernels/flash_attention.py:181``).  CUDA tensors only.
+* :func:`flash_attention_bwd_plain` / :func:`flash_attention_bwd` -- the
+  backward: ``delta = rowsum(do * o)`` in fp32, then dq from
+  ``csrc/flash_bwd.cu``'s dq kernel (replaces ``_dq_kernel``, :226) and
+  dk/dv from its dkv kernel (replaces ``_dkv_kernel``, :261).
+* :class:`FlashAttention` -- the differentiable op: the kernels on CUDA
+  tensors, the plain versions on CPU tensors; no gradient for seg/pos.
 
 Block skipping: :func:`tile_stats` / :func:`live_tile_mask` are the JAX
 package's interval rules, in torch.  The kernel wrapper evaluates them at
 the kernel's own tile sizes and compacts each (stream, Q tile) row of the
 mask into a list of live KV-tile indices plus a count, with device ops
 only (no host sync), so the kernel walks live tiles and nothing else.
+The forward's lists serve the dq kernel as they are; the dkv kernel walks
+their transpose, one list of live Q tiles per (stream, KV tile).
 """
 from __future__ import annotations
 
@@ -31,8 +40,13 @@ import torch.nn.functional as F
 from repro_torch.utils import round_up
 
 __all__ = [
+    "FlashAttention",
     "NEG_INF",
     "count_live_tiles",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
+    "flash_attention_dkv",
+    "flash_attention_dq",
     "flash_attention_fwd",
     "flash_attention_plain",
     "kernel_blocks",
@@ -41,6 +55,7 @@ __all__ = [
     "make_segment_mask",
     "tile_skip_fraction",
     "tile_stats",
+    "transpose_tile_lists",
 ]
 
 NEG_INF = -(2.0**30)
@@ -145,6 +160,38 @@ def flash_attention_plain(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
     return out.reshape(B, H, Tq, D).to(q.dtype), lse.reshape(B, H, Tq)
 
 
+def flash_attention_bwd_plain(q, k, v, do, out, lse, q_seg, kv_seg, q_pos, kv_pos, *,
+                              causal: bool = True, window: int | None = None):
+    """Dense fp32 backward with the kernels' rules: ``p = exp(s - lse)``
+    on unmasked scores and exactly 0 elsewhere (fully-masked rows give
+    zero gradients), ``delta = rowsum(do * o)``, ``ds = p (dp - delta)
+    scale``.  One stream at a time, to bound the score matrices' memory.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, H, Tq, D = q.shape
+    Hkv, Tkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        qf = q[b].float().reshape(Hkv, g, Tq, D)
+        dof = do[b].float().reshape(Hkv, g, Tq, D)
+        kf, vf = k[b].float(), v[b].float()
+        mask = make_segment_mask(q_seg[b], kv_seg[b], q_pos[b], kv_pos[b],
+                                 causal=causal, window=window)
+        s = torch.einsum("hgqd,hkd->hgqk", qf, kf) * scale
+        p = torch.where(mask, torch.exp(s - lse[b].reshape(Hkv, g, Tq, 1)),
+                        torch.zeros_like(s))
+        dp = torch.einsum("hgqd,hkd->hgqk", dof, vf)
+        ds = p * (dp - delta[b].reshape(Hkv, g, Tq, 1)) * scale
+        dq[b] = torch.einsum("hgqk,hkd->hgqd", ds, kf).reshape(H, Tq, D)
+        dk[b] = torch.einsum("hgqk,hgqd->hkd", ds, qf)
+        dv[b] = torch.einsum("hgqk,hgqd->hkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ----------------------------------------------------------------------
 # CUDA kernel.
 # ----------------------------------------------------------------------
@@ -184,10 +231,67 @@ def live_tile_lists(q_seg, kv_seg, q_pos, kv_pos, *, block_q, block_kv, causal,
                           F.pad(q_pos, (0, pq)), F.pad(kv_pos, (0, pk)),
                           block_q=block_q, block_kv=block_kv, causal=causal,
                           window=window)
-    nK = live.shape[-1]
-    tiles = torch.arange(nK, dtype=torch.int32, device=live.device)
-    idx = torch.where(live, tiles, nK).sort(dim=-1).values
+    return _compact(live)
+
+
+def _compact(live: torch.Tensor):
+    """[B, n, m] bool -> (count [B, n] int32, idx [B, n, m] int32): the
+    True columns of each row in ascending order, padded with m."""
+    m = live.shape[-1]
+    cols = torch.arange(m, dtype=torch.int32, device=live.device)
+    idx = torch.where(live, cols, m).sort(dim=-1).values
     return live.sum(dim=-1, dtype=torch.int32), idx.to(torch.int32).contiguous()
+
+
+def transpose_tile_lists(idx):
+    """The per-(stream, Q tile) lists of :func:`live_tile_lists` turned
+    into per-(stream, KV tile) lists of live Q tiles: (count [B, nK],
+    idx [B, nK, nQ]), the lists the dkv kernel walks.  The padding
+    entries of ``idx`` (index nK) land in a column that is cut off."""
+    B, nQ, nK = idx.shape
+    live = torch.zeros((B, nQ, nK + 1), dtype=torch.bool, device=idx.device)
+    live.scatter_(2, idx.long(), True)
+    return _compact(live[..., :nK].transpose(1, 2))
+
+
+def _check(name, q, k, v, ints, more=()):
+    """The kernels' input contract: one CUDA device, contiguous, q/k/v
+    (and ``more``, shaped like q) in one dtype of fp32/bf16, D in
+    {64, 128}, seg/pos int32 [B, T]."""
+    B, H, Tq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    Hkv, Tkv = k.shape[1], k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"n_heads {H} not a multiple of kv heads {Hkv}")
+    tensors = (q, k, v, *more, *ints)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{name} needs every tensor on one CUDA device")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, *more)):
+        raise ValueError(f"{name}: q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need "
+                         f"one of {list(_DTYPE_CODES)}")
+    if any(t.shape != q.shape for t in more):
+        raise ValueError(f"{name}: do/out must have q's shape {tuple(q.shape)}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
+    for label, t, T in zip(("q_seg", "kv_seg", "q_pos", "kv_pos"), ints,
+                           (Tq, Tkv, Tq, Tkv)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (B, T):
+            raise ValueError(f"{label} must be int32 [{B}, {T}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
+def _tile_lists(q_seg, kv_seg, q_pos, kv_pos, *, causal, window):
+    bq, bk = kernel_blocks()
+    return live_tile_lists(q_seg, kv_seg, q_pos, kv_pos, block_q=bq, block_kv=bk,
+                           causal=causal, window=window)
+
+
+def _window_arg(window) -> int:
+    return -1 if window is None else int(window)
 
 
 def flash_attention_fwd(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
@@ -196,34 +300,10 @@ def flash_attention_fwd(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
     stream.  Same arguments and results as :func:`flash_attention_plain`;
     q/k/v contiguous, one dtype (fp32 or bf16), D in {64, 128}.  Counts
     each launch in ``flash_attention_fwd.launches``."""
-    B, H, Tq, D = q.shape
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match "
-                         f"q {tuple(q.shape)}")
-    Hkv, Tkv = k.shape[1], k.shape[2]
-    if H % Hkv:
-        raise ValueError(f"n_heads {H} not a multiple of kv heads {Hkv}")
-    tensors = (q, k, v, q_seg, kv_seg, q_pos, kv_pos)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("flash_attention_fwd needs every tensor on one CUDA device")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one "
-                         f"of {list(_DTYPE_CODES)}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
-    for name, t, T in (("q_seg", q_seg, Tq), ("kv_seg", kv_seg, Tkv),
-                       ("q_pos", q_pos, Tq), ("kv_pos", kv_pos, Tkv)):
-        if t.dtype != torch.int32 or tuple(t.shape) != (B, T):
-            raise ValueError(f"{name} must be int32 [{B}, {T}], got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_attention_fwd needs contiguous tensors")
-
-    bq, bk = kernel_blocks()
-    count, idx = live_tile_lists(q_seg, kv_seg, q_pos, kv_pos, block_q=bq,
-                                 block_kv=bk, causal=causal, window=window)
-    return _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, count, idx,
-                   causal=causal, window=window)
+    ints = (q_seg, kv_seg, q_pos, kv_pos)
+    _check("flash_attention_fwd", q, k, v, ints)
+    count, idx = _tile_lists(*ints, causal=causal, window=window)
+    return _launch(q, k, v, *ints, count, idx, causal=causal, window=window)
 
 
 def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, count, idx, *, causal, window):
@@ -239,7 +319,7 @@ def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, count, idx, *, causal, window
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
         kv_seg.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), count.data_ptr(),
         idx.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Hkv, Tq, Tkv, D,
-        idx.shape[1], idx.shape[2], int(causal), -1 if window is None else int(window),
+        idx.shape[1], idx.shape[2], int(causal), _window_arg(window),
         1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
@@ -249,3 +329,131 @@ def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, count, idx, *, causal, window
 
 
 flash_attention_fwd.launches = 0
+
+
+# ----------------------------------------------------------------------
+# CUDA backward kernels (csrc/flash_bwd.cu).
+# ----------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    from repro_torch.kernels.build import load
+
+    lib = load("flash_bwd.cu")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_bwd_dq.argtypes = [vp] * 13 + [i32] * 10 + [ctypes.c_float, i32, vp]
+    lib.flash_bwd_dkv.argtypes = [vp] * 14 + [i32] * 10 + [ctypes.c_float, i32, vp]
+    for fn in (lib.flash_bwd_dq, lib.flash_bwd_dkv, lib.flash_bwd_block_q,
+               lib.flash_bwd_block_kv):
+        fn.restype = i32
+    if (lib.flash_bwd_block_q(), lib.flash_bwd_block_kv()) != kernel_blocks():
+        raise RuntimeError("flash_bwd.cu and flash_fwd.cu disagree on tile sizes")
+    return lib
+
+
+def _bwd_args(q, k, v, do, lse, delta, ints):
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(t.data_ptr() for t in ints))
+
+
+def _bwd_dims(q, k, idx, causal, window):
+    B, H, Tq, D = q.shape
+    return (B, H, k.shape[1], Tq, k.shape[2], D, idx.shape[1], idx.shape[2],
+            int(causal), _window_arg(window), 1.0 / math.sqrt(D),
+            _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos, count,
+                       idx, *, causal, window):
+    """Launch the dq kernel on checked inputs, walking the forward's
+    per-(stream, Q tile) lists ``count``/``idx``; returns dq in q's
+    dtype.  Counts each launch in ``flash_attention_dq.launches``."""
+    dq = torch.empty_like(q)
+    rc = _bwd_lib().flash_bwd_dq(
+        *_bwd_args(q, k, v, do, lse, delta, (q_seg, kv_seg, q_pos, kv_pos)),
+        count.data_ptr(), idx.data_ptr(), dq.data_ptr(),
+        *_bwd_dims(q, k, idx, causal, window))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed with cudaError {rc}")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos,
+                        t_count, t_idx, *, causal, window):
+    """Launch the dkv kernel on checked inputs, walking the transposed
+    per-(stream, KV tile) lists of :func:`transpose_tile_lists`; returns
+    (dk, dv) in k's dtype, each KV head's GQA group summed in the block.
+    Counts each launch in ``flash_attention_dkv.launches``."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = _bwd_lib().flash_bwd_dkv(
+        *_bwd_args(q, k, v, do, lse, delta, (q_seg, kv_seg, q_pos, kv_pos)),
+        t_count.data_ptr(), t_idx.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_bwd_dims(q, k, t_idx.transpose(1, 2), causal, window))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed with cudaError {rc}")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dq.launches = 0
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, do, out, lse, q_seg, kv_seg, q_pos, kv_pos, *,
+                        causal: bool = True, window: int | None = None, lists=None):
+    """The CUDA backward.  Same arguments and results as
+    :func:`flash_attention_bwd_plain`; ``lists`` are the forward's
+    (count, idx) live-tile lists, made here when not given.  ``delta`` is
+    computed in fp32 outside the kernels, as the JAX package does."""
+    ints = (q_seg, kv_seg, q_pos, kv_pos)
+    do = do.contiguous()
+    _check("flash_attention_bwd", q, k, v, ints, more=(do, out))
+    count, idx = lists if lists is not None else _tile_lists(*ints, causal=causal,
+                                                             window=window)
+    delta = (do.float() * out.float()).sum(-1)
+    t_count, t_idx = transpose_tile_lists(idx)
+    kw = dict(causal=causal, window=window)
+    dq = flash_attention_dq(q, k, v, do, lse, delta, *ints, count, idx, **kw)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, *ints, t_count, t_idx, **kw)
+    return dq, dk, dv
+
+
+# ----------------------------------------------------------------------
+# The differentiable op.
+# ----------------------------------------------------------------------
+class FlashAttention(torch.autograd.Function):
+    """Segment flash attention with its backward: B1 forward, then the dq
+    and dkv kernels on CUDA tensors; the plain versions on CPU tensors.
+    Saves out and lse (and, on CUDA, the live-tile lists) for the
+    backward; seg/pos get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal, window):
+        ints = (q_seg, kv_seg, q_pos, kv_pos)
+        lists = ()
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, *ints, causal=causal,
+                                             window=window)
+        elif q.device.type == "cuda":
+            _check("flash_attention_fwd", q, k, v, ints)
+            lists = _tile_lists(*ints, causal=causal, window=window)
+            out, lse = _launch(q, k, v, *ints, *lists, causal=causal, window=window)
+        else:
+            raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+        ctx.save_for_backward(q, k, v, *ints, out, lse, *lists)
+        ctx.causal, ctx.window = causal, window
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        saved = ctx.saved_tensors  # unpack once (checkpoint recomputes on unpack)
+        q, k, v, *ints, out, lse = saved[:9]
+        lists = saved[9:]  # () on the CPU
+        kw = dict(causal=ctx.causal, window=ctx.window)
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, do, out, lse, *ints, **kw)
+        else:
+            dq, dk, dv = flash_attention_bwd(q, k, v, do, out, lse, *ints, lists=lists,
+                                             **kw)
+        return dq, dk, dv, None, None, None, None, None, None

@@ -6,19 +6,16 @@ which launches or raises.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+from repro_torch.kernels.flash_attention import FlashAttention
 
 __all__ = ["flash_attention_op"]
 
 
 def flash_attention_op(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *, causal=True,
                        window=None):
-    """Segment flash-attention forward; returns out [B, H, Tq, D]."""
-    if q.device.type == "cpu":
-        fn = flash_attention_plain
-    elif q.device.type == "cuda":
-        fn = flash_attention_fwd
-    else:
-        raise ValueError(f"flash_attention_op runs on cpu or cuda, not {q.device}")
-    out, _ = fn(q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal=causal, window=window)
+    """Segment flash attention, differentiable in q, k and v (forward and
+    backward kernels on CUDA, plain versions on CPU); returns out
+    [B, H, Tq, D]."""
+    out, _ = FlashAttention.apply(q, k, v, q_seg, kv_seg, q_pos, kv_pos, bool(causal),
+                                  None if window is None else int(window))
     return out

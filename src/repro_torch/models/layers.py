@@ -4,7 +4,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "layer_norm", "swiglu", "rotary_embedding", "apply_rope"]
+__all__ = ["rms_norm", "layer_norm", "swiglu", "gelu_mlp", "rotary_embedding",
+           "apply_rope"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor | None,
@@ -40,6 +41,12 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP (llama/qwen/mistral family)."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
+    """Plain GELU MLP (whisper / ViT style).  ``jax.nn.gelu`` defaults to
+    the tanh approximation, so this uses it too."""
+    return F.gelu(x @ w_in, approximate="tanh") @ w_out
 
 
 def rotary_embedding(positions: torch.Tensor, head_dim: int,

@@ -43,8 +43,9 @@ def test_decode_backend_rule(impl, decode):
 
 def test_with_attention_backend_validates_against_the_port():
     assert get_config("mllm_10b", attention_backend="flash").attention_impl == "flash"
+    assert get_config("mllm_10b", attention_backend="chunked").attention_impl == "chunked"
     with pytest.raises(ValueError, match="unknown attention backend"):
-        get_config("mllm_10b", attention_backend="chunked")
+        get_config("mllm_10b", attention_backend="windowed_flash")
     with pytest.raises(KeyError):
         get_config("qwen3_8b")
 

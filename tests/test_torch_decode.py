@@ -54,7 +54,8 @@ def jax_params():
 
 
 @pytest.mark.parametrize("backends", [("flash_interpret", "flash"),
-                                      ("reference", "reference")])
+                                      ("reference", "reference"),
+                                      ("flash_interpret", "flash_interpret")])
 def test_paged_decode_matches_jax(jax_params, backends):
     jcfg, tcfg = _cfgs(*backends)
     params = params_from_numpy(jax.tree.map(np.asarray, jax_params), device="cpu")
@@ -129,10 +130,10 @@ def test_bridge_round_trips(dtype):
 
 
 def test_init_params_matches_jax_layout():
-    """Same keys, shapes and dtype as the JAX package's backbone."""
+    """Same keys, shapes and dtype as the JAX package's parameters, the
+    modality encoders included."""
     jcfg = jax_get_config("mllm_10b").smoke()
     tree = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.PRNGKey(0)))
-    tree = {k: v for k, v in tree.items() if not k.startswith("encoder_")}
     params = init_params(get_config("mllm_10b").smoke(), seed=0, device="cpu")
     shapes = jax.tree.map(lambda a: tuple(a.shape), tree)
     assert jax.tree.map(lambda t: tuple(t.shape), params) == shapes

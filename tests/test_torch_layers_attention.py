@@ -43,6 +43,15 @@ def test_swiglu():
            jl.swiglu(*(jnp.asarray(a) for a in (x, wg, wu, wd))))
 
 
+def test_gelu_mlp_uses_jax_tanh_gelu():
+    rng = _rng()
+    x = rng.normal(size=(4, 32)).astype(np.float32)
+    w_in = rng.normal(size=(32, 48)).astype(np.float32) * 0.3
+    w_out = rng.normal(size=(48, 32)).astype(np.float32) * 0.3
+    _close(tl.gelu_mlp(*(torch.from_numpy(a) for a in (x, w_in, w_out))),
+           jl.gelu_mlp(*(jnp.asarray(a) for a in (x, w_in, w_out))))
+
+
 @pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
 def test_rotary_embedding_and_apply_rope(theta):
     rng = _rng()
@@ -93,7 +102,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("backend", ["reference", "flash"])
+@pytest.mark.parametrize("backend", ["reference", "chunked", "flash"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_attention_backends_match_jax(case, backend):
     c = CASES[case]
@@ -115,5 +124,6 @@ def test_attention_backends_match_jax(case, backend):
 def test_attention_rejects_unported_backend():
     x = torch.zeros(1, 1, 2, 8)
     s = torch.ones(1, 1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="chunked"):
-        tattn.attention(x, x, x, q_seg=s, kv_seg=s, q_pos=s, kv_pos=s, backend="chunked")
+    with pytest.raises(ValueError, match="unknown attention backend"):
+        tattn.attention(x, x, x, q_seg=s, kv_seg=s, q_pos=s, kv_pos=s,
+                        backend="windowed_flash")
