@@ -5,10 +5,10 @@
 Drives the port (``src/repro_torch``) and nothing of the JAX package.
 Phases, each printed as one JSON line and each raising on failure:
 
-  build    compile the CUDA flash-attention kernels (forward, backward)
-           from the checkout's sources, one nvcc per source, all started
-           together; print nvcc's time and ptxas' register, shared-memory
-           and spill lines.
+  build    compile the CUDA kernels (flash-attention forward and
+           backward, the grouped GEMMs) from the checkout's sources, one
+           nvcc per source, all started together; print nvcc's time and
+           ptxas' register, shared-memory and spill lines.
   kernels  hold the forward kernel against its plain PyTorch version on
            the card at four cases (the mllm_10b decode shape; a packed
            bf16 stream of 4096 tokens; fp32 with a window and GQA;
@@ -37,6 +37,28 @@ Phases, each printed as one JSON line and each raising on failure:
            and the kernels that take the time.
   train_agree  loss and every parameter gradient of the kernel path
            against the reference backend at 2 layers of each stack, fp32.
+  kernels_moe  hold the grouped-GEMM kernels (gmm, its transposed form for
+           dx, tgmm for dw) against their plain versions at four cases of
+           granite-moe-3b-a800m's widths (the decode shape; the first MoE
+           training batch's shapes; fp32 with empty experts and padding
+           rows, which must come out exactly 0; skewed routing), timed
+           beside torch's grouped product (a yardstick the port never
+           calls); and run one MoE block forward and backward at the
+           training shape with host syncs made errors.
+  serve_moe  serve requests through ``Engine`` on the full granite-moe
+           (32 layers, random bf16 weights from a seed), counting the
+           flash and gmm launches of every decode step.
+  agree_moe  granite at 2 layers of its full widths in fp32, the card's
+           kernel path against the port's plain path on the CPU: greedy
+           engine streams, and the loss and every gradient of one step
+           with the card replaying the CPU's choice of experts; each
+           choice the card would have made otherwise must be a near-tie.
+  train_moe  post-balanced AdamW steps of the full granite-moe on
+           text-only batches planned by the port's orchestrator; one line
+           per step with the launches of all five kernels, held to the
+           expected counts, and the MoE routing metrics.
+  train_moe_profile  one more step under torch.profiler: busy share, and
+           the shares of the flash and grouped-GEMM kernels.
 
 Then the ``kernels`` summary line, the card's name and power limit, and
 the final status line.  Exits non-zero, printing no result, when no card
@@ -46,6 +68,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -167,7 +190,7 @@ def bound(q, k, masks, H, dtype):
 # ----------------------------------------------------------------------
 # Phases.
 # ----------------------------------------------------------------------
-KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "grouped_gemm.cu")
 
 
 def phase_build():
@@ -610,7 +633,7 @@ def train_sampler(rng, per, scale=1.0):
     return out
 
 
-def train_batches(cfg, n, *, per, seed, scale=1.0):
+def train_batches(cfg, n, *, per, seed, scale=1.0, sampler=train_sampler):
     """``n`` post-balanced batches from the port's orchestrator for
     ``TRAIN["d"]`` instances, at capacities fixed from the first draw
     (the orchestrator's default margin); a draw that overflows them is
@@ -621,7 +644,7 @@ def train_batches(cfg, n, *, per, seed, scale=1.0):
     orch = MLLMGlobalOrchestrator(cfg, d)
 
     def draw(s):
-        return [train_sampler(np.random.default_rng(1000 * s + i), per, scale)
+        return [sampler(np.random.default_rng(1000 * s + i), per, scale)
                 for i in range(d)]
 
     caps = orch.default_capacities(draw(seed))
@@ -636,20 +659,33 @@ def train_batches(cfg, n, *, per, seed, scale=1.0):
     return out, caps, redraws
 
 
-def _flash_counters():
+def _counters():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_gemm as gg
 
     return {"flash_fwd": fa.flash_attention_fwd, "flash_dq": fa.flash_attention_dq,
-            "flash_dkv": fa.flash_attention_dkv}
+            "flash_dkv": fa.flash_attention_dkv, "gmm": gg.gmm, "tgmm": gg.tgmm}
 
 
 def reset_launches():
-    for fn in _flash_counters().values():
+    for fn in _counters().values():
         fn.launches = 0
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in _flash_counters().items()}
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def expected_train_launches(cfg):
+    """Kernel launches of one training step: per attention layer the
+    forward (twice under remat: the backward recomputes it), dq and dk/dv;
+    per moe layer three expert products forward (again under remat), their
+    three dx products (gmm) and their three dw products (tgmm)."""
+    n_attn = cfg.n_layers + sum(e.n_layers for e in cfg.encoders)
+    n_moe = cfg.n_layers if cfg.family == "moe" else 0
+    fwd = 2 if cfg.remat else 1
+    return {"flash_fwd": fwd * n_attn, "flash_dq": n_attn, "flash_dkv": n_attn,
+            "gmm": (3 * fwd + 3) * n_moe, "tgmm": 3 * n_moe}
 
 
 def set_tf32(on: bool) -> dict:
@@ -659,9 +695,10 @@ def set_tf32(on: bool) -> dict:
             "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32}
 
 
-def phase_train(cfg, batches, caps, redraws, device):
-    """AdamW steps on the flash kernels; each step's launches are read
-    from counters set to 0 just before it."""
+def phase_train(cfg, batches, caps, redraws, device, phase="train"):
+    """AdamW steps on the kernels; each step's launches are read from
+    counters set to 0 just before it.  The loss must be finite and fall,
+    and a drop-free moe step must drop nothing."""
     from repro_torch.training.optimizer import AdamWConfig, cosine_schedule
     from repro_torch.training.train_step import (batch_to_device, init_train_state,
                                                  make_train_step)
@@ -671,10 +708,9 @@ def phase_train(cfg, batches, caps, redraws, device):
     params, opt_state = init_train_state(cfg, seed=TRAIN["seed"], device=device)
     n_params = sum(p.numel() for p in _leaves(params))
     step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN["peak_lr"]))
-    n_attn = cfg.n_layers + sum(e.n_layers for e in cfg.encoders)
-    expected = {"flash_fwd": (2 if cfg.remat else 1) * n_attn, "flash_dq": n_attn,
-                "flash_dkv": n_attn}
-    emit("train", params=n_params, layers=cfg.n_layers,
+    expected = expected_train_launches(cfg)
+    seg_key = "llm_seg" if cfg.encoders else "seg"
+    emit(phase, params=n_params, layers=cfg.n_layers,
          encoder_layers={e.name: e.n_layers for e in cfg.encoders}, dtype=cfg.dtype,
          remat=cfg.remat, streams=TRAIN["d"], cap_L=caps.llm, cap_text=caps.text,
          enc_in=caps.enc_in, redraws=redraws, expected_launches_per_step=expected,
@@ -692,14 +728,19 @@ def phase_train(cfg, batches, caps, redraws, device):
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = read_launches()
         row = dict(step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                   tokens=int(m["tokens"]), llm_tokens=int((batch_np["llm_seg"] > 0).sum()),
+                   tokens=int(m["tokens"]), llm_tokens=int((batch_np[seg_key] > 0).sum()),
                    **{f"{e.name}_tokens": int((batch_np[f"enc_{e.name}_seg"] > 0).sum())
                       for e in cfg.encoders},
+                   **{k: float(m[k]) for k in ("moe_max_expert_load", "moe_dropped_frac")
+                      if k in m},
                    llm_utilization=float(report.phase_utilization["llm"]), lr=lr,
-                   wall_ms=wall_ms, launches=launches)
-        emit("train", **row)
-        if launches != expected or not np.isfinite([row["loss"], row["grad_norm"]]).all():
-            raise RuntimeError(f"train step failed: {row} (expected launches {expected})")
+                   wall_ms=wall_ms)
+        row["llm_tokens_per_s"] = row["llm_tokens"] / wall_ms * 1e3
+        row["launches"] = launches
+        emit(phase, **row)
+        if (launches != expected or not np.isfinite([row["loss"], row["grad_norm"]]).all()
+                or row.get("moe_dropped_frac", 0.0) != 0.0):
+            raise RuntimeError(f"{phase} step failed: {row} (expected launches {expected})")
         rows.append(row)
         for k in totals:
             totals[k] += launches[k]
@@ -714,11 +755,22 @@ def phase_train(cfg, batches, caps, redraws, device):
         peak_allocated_gb=torch.cuda.max_memory_allocated(device) / 1e9,
         launches_per_step=expected, launches_total=totals,
         loss_first_last=[rows[0]["loss"], rows[-1]["loss"]])
-    emit("train_summary", **summary)
+    emit(f"{phase}_summary", **summary)
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        raise RuntimeError(f"{phase}: the loss did not fall: {summary}")
     return params, opt_state, step_fn, totals, summary
 
 
-def phase_train_profile(step_fn, params, opt_state, batch_np, device):
+def _kernel_of(key: str) -> str | None:
+    """The port's kernel a profiler row belongs to, by its kernel name."""
+    for name in ("flash_fwd", "flash_dq", "flash_dkv", "tgmm", "gmm"):
+        if f"{name}_kernel" in key:
+            return name
+    return None
+
+
+def phase_train_profile(step_fn, params, opt_state, batch_np, device,
+                        phase="train_profile"):
     """One more step traced by torch.profiler: device busy time = the
     summed device time of its kernels (one stream: they do not overlap)."""
     from torch.autograd import DeviceType
@@ -736,13 +788,16 @@ def phase_train_profile(step_fn, params, opt_state, batch_np, device):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    flash = {name: sum(e.self_device_time_total for e in kernels
-                       if f"{name}_kernel" in e.key) / 1e3
-             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    ms = {name: sum(e.self_device_time_total for e in kernels
+                    if _kernel_of(e.key) == name) / 1e3
+          for name in ("flash_fwd", "flash_dq", "flash_dkv", "gmm", "tgmm")}
+    flash = {k: ms[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    grouped = {k: ms[k] for k in ("gmm", "tgmm")}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    emit("train_profile", step_wall_ms=wall_ms, device_busy_ms=busy_ms,
+    emit(phase, step_wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / wall_ms, kernels_per_step=sum(e.count for e in kernels),
          flash_ms=flash, flash_share_of_busy=sum(flash.values()) / busy_ms,
+         grouped_ms=grouped, grouped_share_of_busy=sum(grouped.values()) / busy_ms,
          top_kernels=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
                        "calls": e.count} for e in top])
 
@@ -789,6 +844,362 @@ def phase_train_agree(device):
         raise RuntimeError(f"train_agree failed: {fields}")
 
 
+# ----------------------------------------------------------------------
+# MoE: granite-moe-3b-a800m on the grouped-GEMM kernels.
+# ----------------------------------------------------------------------
+MOE_ARCH = "granite_moe_3b_a800m"
+# Text-only training batches: d = TRAIN["d"] instances of ``per`` examples
+# of 128..1024 tokens, stacked as the card's streams.
+TRAIN_MOE = dict(per=8, steps=6, seed=0)
+MOE_AGREE = dict(per=4, scale=0.25, seed=5, loss_rel_tol=1e-6, grad_rel_l2_tol=1e-5,
+                 tie_rel_tol=1e-4)
+# Kernel against plain version, relative to the plain result's largest
+# entry: bf16 one output rounding (2^-7; both sum exact bf16 products in
+# fp32, in two orders), fp32 1e-5 (sums of up to ~10^3 terms).
+MOE_TOL = {torch.bfloat16: 2.0**-7, torch.float32: 1e-5}
+
+
+def moe_cfg(n_layers=None, dtype="bfloat16"):
+    """granite-moe-3b-a800m at full widths on the flash kernels;
+    ``n_layers`` cuts the depth (None: all 32)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH, attention_backend="flash")
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, dtype=dtype)
+
+
+def text_sampler(rng, per, scale=1.0):
+    """Text-only examples of 128..1024 tokens (``scale`` shrinks them)."""
+    from repro_torch.data.synthetic import Example
+
+    return [Example("text", max(8, int(int(rng.integers(128, 1025)) * scale)), 0, 0,
+                    ("text",)) for _ in range(per)]
+
+
+def moe_offsets(sizes):
+    return np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+
+
+def moe_cases(rng, m_train, routed_train):
+    """(name, dtype, expert row counts, rows M, products); a product is
+    (label, kind, K, N): gmm x[M,K] @ w[E,K,N]; gmm_t x[M,K] @ w[E,N,K]^T
+    (the dx of a forward product); tgmm x[M,K]^T dy[M,N] -> dw[E,K,N].
+    The training case has the first MoE batch's M (every stream slot
+    times top-8) and routed rows (its valid tokens times top-8)."""
+    E, d, f = 40, 1536, 512
+    decode = np.bincount(np.concatenate([rng.choice(E, 8, replace=False)
+                                         for _ in range(8)]), minlength=E)
+    train = rng.multinomial(routed_train, np.full(E, 1.0 / E))
+    fp32 = rng.multinomial(1000 - 77, np.full(E, 1.0 / E))
+    fp32[[0, 17, 39]] = 0
+    fp32[1] += 1000 - 77 - fp32.sum()
+    skew = np.zeros(E, np.int64)
+    skew[0] = 8192
+    live = [e for e in range(1, E) if not 5 <= e <= 12]
+    skew[live] = rng.multinomial(16384 - 8192, np.full(len(live), 1.0 / len(live)))
+    fwd_bwd = [("gate_up", "gmm", d, f), ("dx_gate_up", "gmm_t", f, d),
+               ("dw_gate_up", "tgmm", d, f)]
+    return [
+        ("i_decode", torch.bfloat16, decode, 64, [("gate_up", "gmm", d, f),
+                                                  ("down", "gmm", f, d)]),
+        ("ii_train", torch.bfloat16, train, m_train,
+         [("gate_up", "gmm", d, f), ("down", "gmm", f, d), ("dx_gate_up", "gmm_t", f, d),
+          ("dx_down", "gmm_t", d, f), ("dw_gate_up", "tgmm", d, f),
+          ("dw_down", "tgmm", f, d)]),
+        ("iii_fp32_empty_padding", torch.float32, fp32, 1000, fwd_bwd),
+        ("iv_skewed", torch.bfloat16, skew, 16384, fwd_bwd),
+    ]
+
+
+def moe_bound(kind, M, routed, K, N, E, live, elt, dtype):
+    """Least time (ms) of one grouped product and what bounds it: the
+    routed rows of each input read once, the live experts' weights read
+    once (gmm), each output written once, against 2*K*N flops per routed
+    row at the dtype's peak rate."""
+    if kind == "tgmm":
+        n_bytes = routed * (K + N) * elt + E * K * N * elt
+    else:
+        n_bytes = routed * K * elt + live * K * N * elt + M * N * elt
+    n_bytes += (E + 1) * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2.0 * routed * K * N / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def grouped_library(kind, a, b, offs, E):
+    """One PyTorch call for the same product, timed as a yardstick only:
+    ``torch._grouped_mm`` where this torch takes the case (bf16), else a
+    loop of ``torch.mm`` over the experts' row ranges."""
+    ends = offs[1:]
+    if a.dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+        call = {"gmm": lambda: torch._grouped_mm(a, b, offs=ends),
+                "gmm_t": lambda: torch._grouped_mm(a, b.transpose(1, 2), offs=ends),
+                "tgmm": lambda: torch._grouped_mm(a.t(), b, offs=ends)}[kind]
+        try:
+            call()
+            torch.cuda.synchronize()
+            return call, "torch._grouped_mm"
+        except (RuntimeError, TypeError, ValueError):
+            pass
+    bounds = offs.tolist()
+    ranges = [(e, lo, hi) for e, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))
+              if hi > lo]
+    if kind == "tgmm":
+        return (lambda: [torch.mm(a[lo:hi].t(), b[lo:hi]) for e, lo, hi in ranges],
+                "loop of torch.mm")
+    w = b.transpose(1, 2) if kind == "gmm_t" else b
+    return lambda: [torch.mm(a[lo:hi], w[e]) for e, lo, hi in ranges], "loop of torch.mm"
+
+
+def phase_kernels_moe(device, m_train, routed_train):
+    """gmm / tgmm against their plain versions at four cases; zero rows and
+    empty experts must be exact zeros.  Then one MoE block at the
+    training shape, forward and backward, with host syncs made errors."""
+    from repro_torch.kernels.grouped_gemm import (
+        gmm, group_tile_skip_fraction, grouped_matmul_plain, kernel_block_m, tgmm,
+        tgmm_plain)
+
+    set_tf32(False)
+    rng = np.random.default_rng(2)
+    results = {}
+    for name, dtype, sizes, M, products in moe_cases(rng, m_train, routed_train):
+        E = len(sizes)
+        offs = torch.tensor(moe_offsets(sizes), device=device)
+        routed, live = int(sizes.sum()), int((sizes > 0).sum())
+        empty = np.flatnonzero(sizes == 0)
+        rows = {}
+        for label, kind, K, N in products:
+            x = torch.tensor(rng.normal(size=(M, K)), dtype=dtype, device=device)
+            if kind == "tgmm":
+                b = torch.tensor(rng.normal(size=(M, N)), dtype=dtype, device=device)
+                run = lambda: tgmm(x, b, offs, E)
+                plain = lambda: tgmm_plain(x, b, offs, E)
+            else:
+                shape = (E, N, K) if kind == "gmm_t" else (E, K, N)
+                b = torch.tensor(rng.normal(size=shape) / np.sqrt(K), dtype=dtype,
+                                 device=device)
+                t = kind == "gmm_t"
+                run = lambda: gmm(x, b, offs, transpose_w=t)
+                plain = lambda: grouped_matmul_plain(x, b, offs, transpose_w=t)
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            if kind == "tgmm":
+                zeros_exact = bool(not got[torch.as_tensor(empty, device=device)].any())
+            else:
+                zeros_exact = bool(not got[routed:].any())
+            finite = bool(torch.isfinite(got.float()).all())
+            del got, ref
+            library, library_name = grouped_library(kind, x, b, offs, E)
+            bound_ms, bound_by = moe_bound(kind, M, routed, K, N, E, live,
+                                           x.element_size(), dtype)
+            row = dict(kind=kind, K=K, N=N, max_abs_err=err, ref_max_abs=scale,
+                       tol=MOE_TOL[dtype] * max(1.0, scale), zeros_exact=zeros_exact,
+                       ms=median_ms(run), plain_ms=median_ms(plain),
+                       library_ms=median_ms(library), library=library_name,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            row["ok"] = finite and zeros_exact and err <= row["tol"]
+            rows[label] = row
+            del x, b
+        case = dict(case=name, dtype=str(dtype).replace("torch.", ""), M=M, E=E,
+                    routed_rows=routed, padding_rows=M - routed, live_experts=live,
+                    empty_experts=empty.tolist(),
+                    largest_expert_rows=int(sizes.max()),
+                    tile_skip_fraction=group_tile_skip_fraction(sizes,
+                                                                kernel_block_m(dtype)),
+                    products=rows)
+        emit("kernels_moe", **case)
+        if not all(r["ok"] for r in rows.values()):
+            raise RuntimeError(f"grouped GEMM disagrees with its plain version: {case}")
+        results[name] = case
+    results["no_host_sync"] = moe_block_without_sync(device, m_train)
+    torch.cuda.empty_cache()
+    return results
+
+
+def moe_block_without_sync(device, m_train):
+    """One grouped MoE block of granite's widths at the training shape,
+    forward and backward, under ``set_sync_debug_mode("error")``: any read
+    of routing counts or offsets back to the host raises."""
+    from repro_torch.models.moe import moe_ffn
+
+    cfg = moe_cfg()
+    n, d, f, E = m_train // cfg.experts_per_token, cfg.d_model, cfg.d_ff, cfg.n_experts
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def rand(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    x = rand(1, n, d).requires_grad_()
+    weights = [rand(d, E, dtype=torch.float32, scale=d**-0.5),
+               rand(E, d, f, scale=d**-0.5), rand(E, d, f, scale=d**-0.5),
+               rand(E, f, d, scale=f**-0.5)]
+    for w in weights:
+        w.requires_grad_()
+    valid = torch.arange(n, device=device)[None] < n - 100
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe_ffn(x, *weights, top_k=cfg.experts_per_token, valid=valid,
+                           backend="grouped", block_m=cfg.moe_block_m,
+                           block_n=cfg.moe_block_n)
+        grads = torch.autograd.grad(out.float().square().sum() + aux["lb_loss"],
+                                    [x, *weights])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    fields = dict(tokens=n, out_finite=bool(torch.isfinite(out.float()).all()),
+                  grads_finite=all(bool(torch.isfinite(g.float()).all()) for g in grads),
+                  padding_out_zero=bool(not out[0, n - 100:].any()))
+    emit("kernels_moe", no_host_sync=fields)
+    if not all(fields.values()):
+        raise RuntimeError(f"MoE block at the training shape failed: {fields}")
+    return fields
+
+
+def phase_serve_moe(device):
+    """The full granite-moe served through ``Engine``; every decode step
+    must launch the flash forward once and gmm three times per layer."""
+    from repro_torch.configs import EngineConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import serve_step
+    from repro_torch.serving.engine import Engine
+
+    cfg = moe_cfg()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = init_params(cfg, seed=0, device=device)
+    engine = Engine(cfg, EngineConfig(**SERVE_ENGINE), params, device=device)
+    requests = make_requests(cfg, seed=0)
+    reset_launches()
+    with CountCalls(serve_step, "decode_step") as calls:
+        report = engine.run(requests)
+    launches = read_launches()
+    engine.pool.check()
+    check_streams(requests, cfg.vocab_size)
+    L = cfg.n_layers
+    expected = {"flash_fwd": L * calls.calls, "flash_dq": 0, "flash_dkv": 0,
+                "gmm": 3 * L * calls.calls, "tgmm": 0}
+    fields = dict(
+        layers=L, params=sum(p.numel() for p in _leaves(params)),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+        decode_step_calls=calls.calls, launches=launches, expected_launches=expected,
+        **{k: getattr(report, k) for k in (
+            "n_requests", "n_finished", "n_steps", "n_preemptions", "prompt_tokens",
+            "generated_tokens", "wall_s", "throughput_tok_s", "prefill_steps",
+            "prefill_ms_mean", "decode_steps", "decode_ms_mean", "token_slots")})
+    emit("serve_moe", **fields)
+    if report.n_finished != len(requests) or launches != expected or not calls.calls:
+        raise RuntimeError(f"serve_moe phase failed: {fields}")
+    return launches
+
+
+class RoutingReplay:
+    """Stands in for ``moe.select_experts``.  ``record`` keeps the experts
+    each call picks; ``replay`` makes the calls take the recorded experts,
+    in the same order (remat's recompute included), with the gate values
+    read from the replaying side's own probabilities.  Top-k is
+    discontinuous: at a near-tie of the k-th and (k+1)-th probability two
+    fp32 paths that round differently pick different experts, and the
+    router's gradient then differs by far more than rounding.  A replayed
+    token whose recorded experts differ from the side's own top-k and hold
+    less probability is a flip; its margin is that shortfall over its own
+    k-th probability.  (Padding tokens tie exactly and are no flips.)"""
+
+    def __init__(self):
+        self.ids, self.replaying, self.calls = [], False, 0
+        self.flips, self.decisions, self.max_margin = 0, 0, 0.0
+
+    def __call__(self, probs, top_k):
+        own_vals, own_ids = torch.topk(probs, top_k, dim=-1)
+        if not self.replaying:
+            self.ids.append(own_ids.detach().cpu())
+            return own_vals, own_ids
+        ids = self.ids[self.calls].to(probs.device)
+        self.calls += 1
+        vals = probs.gather(-1, ids)
+        with torch.no_grad():
+            differ = (own_ids.sort(-1).values != ids.sort(-1).values).any(-1)
+            short = torch.where(differ, own_vals.sum(-1) - vals.sum(-1), 0).clamp_min(0)
+            margin = short / own_vals[:, -1].clamp_min(1e-30)
+            self.flips += int((short > 0).sum())
+            self.decisions += probs.shape[0]
+            self.max_margin = max(self.max_margin, float(margin.max()))
+        return vals, ids
+
+
+def phase_agree_moe(device):
+    """granite at 2 layers of its full widths in fp32: the card's kernels
+    against the port's plain path on the CPU, same weights and inputs.
+    The training step on the card replays the CPU's routing, so the
+    kernels are held to the strict bounds on one choice of experts, and
+    every choice the card would have made otherwise must be a near-tie
+    (``RoutingReplay``)."""
+    from repro_torch.configs import EngineConfig
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Engine
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_step import batch_to_device, make_loss_fn
+
+    tf32 = set_tf32(False)
+    a = MOE_AGREE
+    cfg = moe_cfg(n_layers=2, dtype="float32")
+    devices = {"cpu": torch.device("cpu"), "card": device}
+    params = {"card": init_params(cfg, seed=1, device=device)}
+    params["cpu"] = tree_map(lambda t: t.cpu(), params["card"])
+    streams = {}
+    for side, p in params.items():
+        reqs = make_requests(cfg, seed=1)
+        Engine(cfg, EngineConfig(**SERVE_ENGINE), p, device=devices[side]).run(reqs)
+        check_streams(reqs, cfg.vocab_size)
+        streams[side] = [r.output_tokens for r in reqs]
+    mismatched = [i for i, (x, y) in enumerate(zip(streams["card"], streams["cpu"]))
+                  if x != y]
+
+    [(batch_np, _)], caps, _ = train_batches(cfg, 1, per=a["per"], seed=a["seed"],
+                                             scale=a["scale"], sampler=text_sampler)
+    out, replay, select = {}, RoutingReplay(), moe.select_experts
+    moe.select_experts = replay
+    try:
+        for side in ("cpu", "card"):  # the CPU records, the card replays
+            replay.replaying = side == "card"
+            leaves = tree_leaves(params[side])
+            for t in leaves:
+                t.requires_grad_(True)
+            loss, m = make_loss_fn(cfg)(params[side],
+                                        batch_to_device(batch_np, devices[side]))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+            out[side] = (loss.detach().cpu(), [g.detach().cpu() for g in grads],
+                         {k: float(v.detach()) for k, v in m.items()})
+    finally:
+        moe.select_experts = select
+    (lk, gk, mk), (lc, gc, mc) = out["card"], out["cpu"]
+    names = list(_flat_names(params["cpu"]))
+    rel = {n: float((x.double() - y.double()).norm() / y.double().norm().clamp_min(1e-30))
+           for n, x, y in zip(names, gk, gc)}
+    worst = max(rel, key=rel.get)
+    loss_rel = float((lk - lc).abs() / lc.abs())
+    finite = bool(torch.isfinite(lk)) and all(bool(torch.isfinite(g).all()) for g in gk)
+    fields = dict(layers=2, dtype=cfg.dtype, streams_equal=not mismatched,
+                  mismatched=mismatched, generated=sum(len(t) for t in streams["cpu"]),
+                  cap_L=caps.llm, tokens=int(mc["tokens"]), loss_card=float(lk),
+                  loss_cpu=float(lc), loss_rel_err=loss_rel, loss_rel_tol=a["loss_rel_tol"],
+                  worst_leaf=worst, worst_grad_rel_l2=rel[worst],
+                  grad_rel_l2_tol=a["grad_rel_l2_tol"], leaves=len(rel), finite=finite,
+                  moe_max_expert_load=[mk["moe_max_expert_load"],
+                                       mc["moe_max_expert_load"]],
+                  routing_calls=[len(replay.ids), replay.calls],
+                  routing_decisions=replay.decisions, routing_flips=replay.flips,
+                  flip_max_rel_margin=replay.max_margin, tie_rel_tol=a["tie_rel_tol"],
+                  **tf32)
+    emit("agree_moe", **fields)
+    if (mismatched or not finite or loss_rel > a["loss_rel_tol"]
+            or rel[worst] > a["grad_rel_l2_tol"] or replay.calls != len(replay.ids)
+            or replay.max_margin > a["tie_rel_tol"]):
+        raise RuntimeError(f"agree_moe failed: {fields}")
+
+
 def _flat_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -797,9 +1208,10 @@ def _flat_names(tree, prefix=""):
             yield prefix + k
 
 
-def kernel_row(name, source, replaces, launches, case, ms_key, bound_key):
+def kernel_row(name, source, replaces, launches, case, ms_key, bound_key,
+               module="flash_attention.py"):
     return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": f"src/repro/kernels/flash_attention.py:{replaces}",
+            "replaces": f"src/repro/kernels/{module}:{replaces}",
             "launches": launches, "max_abs_err": case["max_abs_err"],
             "ms": case[ms_key], "plain_ms": case["plain_ms"],
             "bound_ms": case[f"{bound_key}_ms"], "bound_by": case[f"{bound_key}_by"],
@@ -811,6 +1223,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script runs "
               "only on a CUDA card", file=sys.stderr)
         return 2
+    if "PYTHONHASHSEED" not in os.environ:
+        # The orchestrator draws each example's tokens from a seed that
+        # hashes a str, so they differ from process to process unless the
+        # hash seed is pinned: start again with it pinned, so that every
+        # run trains and compares on the same data.
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
 
@@ -824,6 +1243,13 @@ def main() -> int:
     batches, caps, redraws = train_batches(tcfg, TRAIN["steps"], per=TRAIN["per"],
                                            seed=TRAIN["seed"])
     kern_bwd = phase_kernels_bwd(device, batches[0][0])
+    mcfg = moe_cfg()
+    moe_batches, moe_caps, moe_redraws = train_batches(
+        mcfg, TRAIN_MOE["steps"], per=TRAIN_MOE["per"], seed=TRAIN_MOE["seed"],
+        sampler=text_sampler)
+    first_seg = moe_batches[0][0]["seg"]
+    k = mcfg.experts_per_token
+    kern_moe = phase_kernels_moe(device, first_seg.size * k, int((first_seg > 0).sum()) * k)
 
     cfg = get_config("mllm_10b", attention_backend="flash")
     torch.cuda.reset_peak_memory_stats(device)
@@ -840,6 +1266,17 @@ def main() -> int:
     del params, opt_state, step_fn
     torch.cuda.empty_cache()
     phase_train_agree(device)
+
+    serve_moe_launches = phase_serve_moe(device)
+    torch.cuda.empty_cache()
+    phase_agree_moe(device)
+    torch.cuda.empty_cache()
+    params, opt_state, step_fn, moe_launches, _ = phase_train(
+        mcfg, moe_batches, moe_caps, moe_redraws, device, phase="train_moe")
+    phase_train_profile(step_fn, params, opt_state, moe_batches[-1][0], device,
+                        phase="train_moe_profile")
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
     if "jax" in sys.modules or "repro" in sys.modules:
         raise RuntimeError("the smoke run imported jax or the JAX package")
 
@@ -853,8 +1290,14 @@ def main() -> int:
                      step_case, "dkv_ms", "dkv_bound")
     err = step_case["max_abs_err"]
     dq["max_abs_err"], dkv["max_abs_err"] = err["dq"], max(err["dk"], err["dv"])
+    moe_step = kern_moe["ii_train"]["products"]
+    gmm_row = kernel_row("gmm", "grouped_gemm.cu", 56, moe_launches["gmm"],
+                         moe_step["gate_up"], "ms", "bound", module="grouped_gemm.py")
+    gmm_row["launches_serve"] = serve_moe_launches["gmm"]
+    tgmm_row = kernel_row("tgmm", "grouped_gemm.cu", 105, moe_launches["tgmm"],
+                          moe_step["dw_gate_up"], "ms", "bound", module="grouped_gemm.py")
     emit("done", seconds=time.perf_counter() - t0)
-    print(json.dumps({"kernels": [fwd, dq, dkv]}))
+    print(json.dumps({"kernels": [fwd, dq, dkv, gmm_row, tgmm_row]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True)

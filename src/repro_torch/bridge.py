@@ -26,11 +26,17 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+# Leaves the JAX package keeps in fp32 whatever the model's dtype.
+FP32_LEAVES = frozenset({"router"})
+
+
 def params_from_numpy(tree: dict, *, device, dtype: torch.dtype | None = None) -> dict:
     """Nested dicts of numpy arrays -> nested dicts of tensors on
-    ``device`` (cast to ``dtype`` when given, else the arrays' own)."""
+    ``device`` (cast to ``dtype`` when given, else the arrays' own; the
+    ``FP32_LEAVES`` keep their own dtype)."""
     return {k: params_from_numpy(v, device=device, dtype=dtype) if isinstance(v, dict)
-            else _tensor(v, device, dtype) for k, v in tree.items()}
+            else _tensor(v, device, None if k in FP32_LEAVES else dtype)
+            for k, v in tree.items()}
 
 
 def params_to_numpy(tree: dict) -> dict:

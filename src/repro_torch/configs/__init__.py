@@ -17,7 +17,7 @@ from repro_torch.configs.registry import paged_cache_specs
 __all__ = ["ARCHITECTURES", "EncoderConfig", "EngineConfig", "ModelConfig",
            "get_config", "paged_cache_specs", "with_attention_backend"]
 
-ARCHITECTURES = ("mllm_10b",)
+ARCHITECTURES = ("mllm_10b", "granite_moe_3b_a800m")
 
 
 def get_config(name: str, *, attention_backend: str | None = None) -> ModelConfig:

@@ -64,8 +64,8 @@ class ModelConfig:
     capacity_factor: float = 1.25
     # Expert dispatch backend: "dense" = legacy [E, capacity, d] buffer
     # (static shapes, drops past capacity); "grouped" = drop-free sorted
-    # dispatch through the Pallas grouped-GEMM kernel
-    # (kernels/grouped_gemm.py, tile-skip over empty experts).
+    # dispatch through the grouped-GEMM kernels (CUDA in the port,
+    # kernels/grouped_gemm.py; tile-skip over empty experts).
     moe_backend: Literal["dense", "grouped"] = "dense"
     moe_block_m: int = 128
     moe_block_n: int = 128

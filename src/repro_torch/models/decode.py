@@ -1,5 +1,5 @@
-"""Single-token decode for the dense/vlm families (``repro.models.decode``
-in PyTorch).
+"""Single-token decode for the dense/moe/vlm families
+(``repro.models.decode`` in PyTorch).
 
 Cache layouts (see ``configs.registry.paged_cache_specs``):
 
@@ -24,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attention
 from repro_torch.models.layers import apply_rope, layer_norm, rms_norm, rotary_embedding, swiglu
+from repro_torch.models.moe import moe_ffn
 
 __all__ = ["decode_step"]
 
@@ -94,7 +95,15 @@ def _layer(params, l):
 
 
 def _dense_ffn(cfg, lp, h):
-    """The dense-family FFN half of a decode layer ([B,D] -> [B,D])."""
+    """The dense-family FFN half of a decode layer ([B,D] -> [B,D]); the
+    moe family routes every row (no validity mask: an inactive row's
+    output is ignored)."""
+    if cfg.family == "moe":
+        ff, _ = moe_ffn(h[:, None, :], lp["router"], lp["w_gate"], lp["w_up"],
+                        lp["w_down"], top_k=cfg.experts_per_token,
+                        capacity_factor=cfg.capacity_factor, backend=cfg.moe_backend,
+                        block_m=cfg.moe_block_m, block_n=cfg.moe_block_n)
+        return ff[:, 0]
     return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
@@ -158,8 +167,8 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, t, *, block_tables=None
     ``params``; the cache is updated in place.
 
     Returns (logits [B, vocab] fp32, cache)."""
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"the port decodes dense/vlm families, not {cfg.family!r}")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"the port decodes dense/moe/vlm families, not {cfg.family!r}")
     x = params["embed"][tokens[:, 0]]  # [B,D]
     if block_tables is not None:
         x = _decode_dense_paged(cfg, params, x, cache, t, block_tables)

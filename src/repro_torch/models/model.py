@@ -1,5 +1,5 @@
-"""Model assembly for the dense/vlm families (``repro.models.model`` in
-PyTorch): parameter init with the modality encoders, the training
+"""Model assembly for the dense/moe/vlm families (``repro.models.model``
+in PyTorch): parameter init with the modality encoders, the training
 forward over post-balanced batches, and the chunked cross-entropy.
 
 Parameters are a dict of tensors with the JAX package's keys and stacked
@@ -39,7 +39,7 @@ def _dense(shape, dt, device, gen, scale: float | None = None) -> torch.Tensor:
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     out = torch.empty(shape, dtype=dt, device=device)
-    for part in (out if len(shape) == 3 else [out]):
+    for part in (out if len(shape) >= 3 else [out]):
         w = torch.empty(part.shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
         part.copy_(w.mul_(std))
@@ -63,10 +63,12 @@ def _init_encoder(e: EncoderConfig, d_llm: int, dense, ones) -> Params:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
-    """Parameters of a dense/vlm config: the backbone and, under
-    ``encoder_<name>``, each modality encoder with its connector."""
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"the port builds dense/vlm backbones, not {cfg.family!r}")
+    """Parameters of a dense/moe/vlm config: the backbone and, under
+    ``encoder_<name>``, each modality encoder with its connector.  An moe
+    layer stack holds the router ``[L, D, E]`` in fp32 whatever the
+    model's dtype, and experts ``[L, E, D, F]`` / ``[L, E, F, D]``."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"the port builds dense/moe/vlm backbones, not {cfg.family!r}")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = torch_dtype(cfg)
@@ -87,8 +89,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
                   wv=dense((L, D, Hkv * hd)), wo=dense((L, H * hd, D)))
     if cfg.qk_norm:
         layers.update(q_norm=ones((L, hd)), k_norm=ones((L, hd)))
-    layers.update(w_gate=dense((L, D, F)), w_up=dense((L, D, F)),
-                  w_down=dense((L, F, D)))
+    if cfg.family == "moe":
+        E = cfg.n_experts
+        layers.update(router=_dense((L, D, E), torch.float32, device, gen),
+                      w_gate=dense((L, E, D, F)), w_up=dense((L, E, D, F)),
+                      w_down=dense((L, E, F, D)))
+    else:
+        layers.update(w_gate=dense((L, D, F)), w_up=dense((L, D, F)),
+                      w_down=dense((L, F, D)))
     params["layers"] = layers
     if not cfg.nonparametric_norm:
         params["final_norm"] = ones((D,))
@@ -233,11 +241,13 @@ def _scatter_tokens(x, dst, values):
 
 def forward(cfg: ModelConfig, params: Params, batch: dict, *,
             exchange: Callable | None = None):
-    """Returns (sum_loss, n_tokens, aux_loss) for a post-balanced batch
-    of tensors (the orchestrator's keys).  ``exchange(name, tokens)`` moves
-    encoder-output tokens to their destination streams."""
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"the port's forward runs dense/vlm, not {cfg.family!r}")
+    """Returns (sum_loss, n_tokens, aux) for a post-balanced batch of
+    tensors (the orchestrator's keys): aux is the scalar aux loss, or for
+    the moe family ``decoder_stack``'s dict of routing metrics.
+    ``exchange(name, tokens)`` moves encoder-output tokens to their
+    destination streams."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"the port's forward runs dense/moe/vlm, not {cfg.family!r}")
     tokens = batch["tokens"].long()
     if cfg.encoders:
         S = tokens.shape[0]

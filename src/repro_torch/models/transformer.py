@@ -1,5 +1,5 @@
 """Decoder and encoder stacks (``repro.models.transformer`` in PyTorch,
-the dense/vlm and encoder paths).
+the dense/moe/vlm and encoder paths).
 
 Layer parameters are stacked on a leading ``[L, ...]`` axis, as in the
 JAX package.  Where JAX scans one layer body over that axis, the port
@@ -7,7 +7,9 @@ unbinds the stacked leaves once and loops over the layers; the unbind's
 backward stacks the layer gradients into one ``[L, ...]`` gradient.
 ``cfg.remat`` checkpoints each layer (``torch.utils.checkpoint``, not
 reentrant): the backward recomputes the layer's forward, so an attention
-layer runs its forward kernel twice per training step.
+layer runs its forward kernel twice per training step.  An moe layer
+returns ``(x, aux)`` from the checkpointed body, with the routing aux
+metrics of :func:`repro_torch.models.moe.moe_ffn`.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.models.layers import (
     rotary_embedding,
     swiglu,
 )
+from repro_torch.models.moe import moe_ffn
 
 __all__ = ["decoder_stack", "encoder_stack"]
 
@@ -62,7 +65,15 @@ def _attend(cfg: ModelConfig, p: Params, x, seg, pos, sin, cos, *, causal=True):
     return out.reshape(B, T, H * hd) @ p["wo"]
 
 
-def _ffn(cfg: ModelConfig, p: Params, x):
+def _ffn(cfg: ModelConfig, p: Params, x, valid=None):
+    """The feed-forward block; the moe family returns ``(out, aux)``.  The
+    port has no autotune cache: the grouped blocks are the config's, as
+    in the JAX package with ``kernel_autotune`` off."""
+    if cfg.family == "moe":
+        return moe_ffn(x, p["router"], p["w_gate"], p["w_up"], p["w_down"],
+                       top_k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor,
+                       valid=valid, backend=cfg.moe_backend, block_m=cfg.moe_block_m,
+                       block_n=cfg.moe_block_n)
     if cfg.family == "audio":
         return gelu_mlp(x, p["w_in"], p["w_out"])
     if cfg.family in ("dense", "vlm"):
@@ -72,9 +83,13 @@ def _ffn(cfg: ModelConfig, p: Params, x):
 
 def _attn_mlp_layer(cfg: ModelConfig, p: Params, x, seg, pos, sin, cos, *,
                     causal=True):
+    """One attention + FFN layer: x, or ``(x, aux)`` for the moe family."""
     h = _norm(cfg, x, p.get("attn_norm"))
     x = x + _attend(cfg, p, h, seg, pos, sin, cos, causal=causal)
     h = _norm(cfg, x, p.get("mlp_norm"))
+    if cfg.family == "moe":
+        ff, aux = _ffn(cfg, p, h, seg > 0)
+        return x + ff, aux
     return x + _ffn(cfg, p, h)
 
 
@@ -86,24 +101,39 @@ def _layer_slices(stacked: Params) -> list[Params]:
 
 
 def _run_layers(cfg: ModelConfig, stacked: Params, x, seg, pos, *, causal):
+    """Returns (x, the per-layer aux dicts: one per layer for moe, else
+    none)."""
     sin, cos = rotary_embedding(pos, cfg.head_dim_, cfg.rope_theta)
+    auxs = []
     for lp in _layer_slices(stacked):
         body = functools.partial(_attn_mlp_layer, cfg, lp, seg=seg, pos=pos, sin=sin,
                                  cos=cos, causal=causal)
-        x = checkpoint(body, x, use_reentrant=False) if cfg.remat else body(x)
-    return x
+        out = checkpoint(body, x, use_reentrant=False) if cfg.remat else body(x)
+        if cfg.family == "moe":
+            x, aux = out
+            auxs.append(aux)
+        else:
+            x = out
+    return x, auxs
 
 
 def decoder_stack(cfg: ModelConfig, params: Params, x, seg, pos):
-    """x [B,T,D] -> ([B,T,D], aux), the dense/vlm branch: aux is the
-    scalar aux loss, 0 for these families."""
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"the port's decoder_stack runs dense/vlm, not {cfg.family!r}")
-    x = _run_layers(cfg, params["layers"], x, seg, pos, causal=True)
+    """x [B,T,D] -> ([B,T,D], aux).  For dense/vlm aux is the scalar aux
+    loss, 0; for moe a dict: ``lb_loss`` summed over layers,
+    ``expert_load`` [E] and ``dropped_frac`` averaged over layers."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"the port's decoder_stack runs dense/moe/vlm, not {cfg.family!r}")
+    x, auxs = _run_layers(cfg, params["layers"], x, seg, pos, causal=True)
+    if cfg.family == "moe":
+        return x, {
+            "lb_loss": torch.stack([a["lb_loss"] for a in auxs]).sum(),
+            "expert_load": torch.stack([a["expert_load"] for a in auxs]).mean(0),
+            "dropped_frac": torch.stack([a["dropped_frac"] for a in auxs]).mean(),
+        }
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def encoder_stack(cfg: ModelConfig, params: Params, x, seg, pos):
     """Bidirectional encoder over ``params["enc_layers"]``; LayerNorm +
     GELU when ``cfg.family == "audio"`` (the modality encoders' path)."""
-    return _run_layers(cfg, params["enc_layers"], x, seg, pos, causal=False)
+    return _run_layers(cfg, params["enc_layers"], x, seg, pos, causal=False)[0]

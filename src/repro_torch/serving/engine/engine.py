@@ -192,8 +192,8 @@ class Engine:
                  cost_model: ServingCostModel | None = None,
                  replica_id: int = 0,
                  device="cuda"):
-        if cfg.family not in ("dense", "vlm"):
-            raise ValueError(f"the port's engine serves dense/vlm families, "
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"the port's engine serves dense/moe/vlm families, "
                              f"not {cfg.family!r}")
         self.device = resolve_device(device)
         self.cfg = cfg

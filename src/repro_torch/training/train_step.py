@@ -110,16 +110,24 @@ def make_exchange(batch: dict):
 
 def make_loss_fn(cfg: ModelConfig, *, attention_backend: str | None = None):
     """``loss_fn(params, batch) -> (loss, metrics)`` with
-    ``loss = sum / n + 0.01 * aux``; ``attention_backend`` overrides the
-    config's backend at every attention site."""
+    ``loss = sum / n + 0.01 * aux`` (the moe family's ``lb_loss``, its
+    other routing metrics reported as ``moe_*``); ``attention_backend``
+    overrides the config's backend at every attention site."""
     cfg = with_attention_backend(cfg, attention_backend)
 
     def loss_fn(params, batch):
         ex = make_exchange(batch) if cfg.encoders else None
         loss_sum, n, aux = forward(cfg, params, batch, exchange=ex)
         n = torch.clamp(n, min=1)
-        loss = loss_sum / n + 0.01 * aux
-        return loss, {"loss": loss_sum / n, "aux_loss": aux, "tokens": n}
+        # the moe family returns a dict of routing metrics: only the
+        # load-balance loss enters the objective, the rest are metrics
+        aux_loss = aux["lb_loss"] if isinstance(aux, dict) else aux
+        loss = loss_sum / n + 0.01 * aux_loss
+        metrics = {"loss": loss_sum / n, "aux_loss": aux_loss, "tokens": n}
+        if isinstance(aux, dict):
+            metrics["moe_dropped_frac"] = aux["dropped_frac"]
+            metrics["moe_max_expert_load"] = aux["expert_load"].max()
+        return loss, metrics
 
     return loss_fn
 

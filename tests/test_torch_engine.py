@@ -77,3 +77,27 @@ def test_preemption_recompute_keeps_streams():
                     device="cpu").run(reqs)
     assert report.n_preemptions > 0 and report.recompute_tokens > 0
     assert [r.output_tokens for r in reqs] == [r.output_tokens for r in jax_reqs]
+
+
+def test_moe_engine_streams_match_jax_engine():
+    """granite-moe-3b-a800m's smoke config (4 experts, top-2, grouped
+    dispatch; the JAX engine's grouped products in interpret mode): the
+    port's engine on its flash backend gives the JAX engine's greedy
+    streams and step counts."""
+    jcfg = dataclasses.replace(jax_get_config("granite_moe_3b_a800m").smoke(),
+                               dtype="float32")
+    params = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    jax_reqs = _trace(jax_sample_examples, jax_requests, jcfg.vocab_size)
+    jax_report = JaxEngine(jcfg, JaxEngineConfig(**ENGINE), params,
+                           attention_backend="reference").run(jax_reqs)
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m").smoke(), dtype="float32")
+    reqs = _trace(sample_examples, requests_from_examples, cfg.vocab_size)
+    engine = Engine(cfg, EngineConfig(**ENGINE),
+                    params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
+                    attention_backend="flash", device="cpu")
+    report = engine.run(reqs)
+    engine.pool.check()
+    assert report.n_finished == N_REQUESTS
+    assert [r.output_tokens for r in reqs] == [r.output_tokens for r in jax_reqs]
+    for key in ("n_steps", "prompt_tokens", "generated_tokens", "decode_steps"):
+        assert getattr(report, key) == getattr(jax_report, key), key

@@ -22,6 +22,11 @@ TRAINING_SLICE = {
     "repro_torch.sharding.specs", "repro_torch.training.optimizer",
     "repro_torch.training.train_step",
 }
+# The MoE slice's modules.
+MOE_SLICE = {
+    "repro_torch.configs.granite_moe_3b_a800m", "repro_torch.kernels.grouped_gemm",
+    "repro_torch.models.moe",
+}
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -58,3 +63,9 @@ def test_no_source_names_jax_or_the_jax_package():
     for path in sources:
         hits = pattern.findall(path.read_text())
         assert not hits, f"{path.name} imports {hits}"
+
+
+def test_moe_slice_modules_are_in_the_walk():
+    """The import walk of the first test reaches the MoE slice's modules
+    (so they too import with JAX and the JAX package blocked)."""
+    assert MOE_SLICE <= set(_modules())

@@ -112,3 +112,26 @@ def test_cost_models_and_stage_partition_equal():
     for pp in (1, 3, 4):
         assert stage_partition(28, pp) == jax_stage_partition(28, pp)
         assert stage_partition(28, pp, costs) == jax_stage_partition(28, pp, costs)
+
+
+def test_granite_moe_text_batches_bit_identical():
+    """granite-moe-3b-a800m's smoke config: the text-only packing
+    (``_pack_text``) gives the JAX package's batches and reports, with
+    the MoE family's top-k factor in the LLM cost model."""
+    tcfg = get_config("granite_moe_3b_a800m").smoke()
+    jcfg = jax_get_config("granite_moe_3b_a800m").smoke()
+    d, per = 2, 8
+    mine, ref = MLLMGlobalOrchestrator(tcfg, d), JaxOrchestrator(jcfg, d)
+    assert dataclasses.asdict(tcm.llm_cost_model(tcfg)) == \
+        dataclasses.asdict(jcm.llm_cost_model(jcfg))
+    caps_t = mine.default_capacities(_draw(sample_examples, d, per, 0, True), margin=3.0)
+    caps_j = ref.default_capacities(_draw(jax_sample_examples, d, per, 0, True), margin=3.0)
+    assert dataclasses.asdict(caps_t) == dataclasses.asdict(caps_j)
+    for it in range(2):
+        batch_t, rep_t = mine.plan_and_pack(_draw(sample_examples, d, per, 30 + it, True),
+                                            caps_t, np.random.default_rng(it))
+        batch_j, rep_j = ref.plan_and_pack(_draw(jax_sample_examples, d, per, 30 + it, True),
+                                           caps_j, np.random.default_rng(it))
+        assert set(batch_t) == {"tokens", "labels", "seg", "pos"}
+        _assert_same(batch_t, batch_j, "batch")
+        _assert_same(_report_dict(rep_t), _report_dict(rep_j))

@@ -223,3 +223,40 @@ def test_three_step_trajectory_matches_jax_train_step():
         np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
                                    rtol=GRAD_REL_L2)
         assert int(tm["tokens"]) == int(jm["tokens"])
+
+
+def test_moe_loss_gradients_and_metrics_match_jax():
+    """granite-moe-3b-a800m's smoke config (4 experts, top-2, grouped
+    dispatch) on a text-only orchestrator batch: the loss, every
+    parameter gradient (router and experts included) and the MoE metrics
+    against the JAX package's ``make_loss_fn``, whose grouped products run
+    its Pallas kernel in interpret mode."""
+    jcfg = dataclasses.replace(jax_get_config("granite_moe_3b_a800m").smoke(),
+                               dtype="float32")
+    tcfg = _port_cfg(jcfg)
+    jparams = _jax_init(jcfg, 0)
+    batch = _batches(jcfg, 1)[0]
+    (jloss, jm), jgrads = jax.jit(jax.value_and_grad(
+        jax_make_loss_fn(jcfg, attention_backend="chunked"), has_aux=True))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    jgrads = _flat(jax.tree.map(np.asarray, jgrads))
+
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    assert params["layers"]["router"].dtype == torch.float32
+    leaves = topt.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, metrics = make_loss_fn(tcfg, attention_backend="flash")(
+        params, batch_to_device(batch, "cpu"))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    assert abs(float(loss.detach()) - float(jloss)) <= LOSS_RTOL * abs(float(jloss))
+    assert int(metrics["tokens"]) == int(jm["tokens"]) > 0
+    for key in ("aux_loss", "moe_max_expert_load"):
+        np.testing.assert_allclose(float(metrics[key].detach()), float(jm[key]),
+                                   rtol=LOSS_RTOL, err_msg=key)
+    assert float(metrics["moe_dropped_frac"]) == float(jm["moe_dropped_frac"]) == 0.0
+    names = list(_flat(params))
+    assert set(names) == set(jgrads)
+    errs = {n: _rel_l2(g.numpy(), jgrads[n]) for n, g in zip(names, grads)}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= GRAD_REL_L2, (worst, errs[worst])
