@@ -6,9 +6,10 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package.
 Phases, each printed as one JSON line and each raising on failure:
 
   build    compile the CUDA kernels (flash-attention forward and
-           backward, the grouped GEMMs) from the checkout's sources, one
-           nvcc per source, all started together; print nvcc's time and
-           ptxas' register, shared-memory and spill lines.
+           backward, the grouped GEMMs, the selective scan) from the
+           checkout's sources, one nvcc per source, all started together;
+           print nvcc's time and ptxas' register, shared-memory and spill
+           lines.
   kernels  hold the forward kernel against its plain PyTorch version on
            the card at four cases (the mllm_10b decode shape; a packed
            bf16 stream of 4096 tokens; fp32 with a window and GQA;
@@ -59,6 +60,25 @@ Phases, each printed as one JSON line and each raising on failure:
            expected counts, and the MoE routing metrics.
   train_moe_profile  one more step under torch.profiler: busy share, and
            the shares of the flash and grouped-GEMM kernels.
+  kernels_ssm  hold the selective-scan kernels (ssm_fwd; ssm_bwd for du,
+           ddt, dA, dB, dC, dD) against the plain scan and its plain
+           backward at four cases (the first falcon-mamba-7b training
+           batch's shape; fp32 with ragged segments; N = 4 with ragged
+           channels; zamba2's mamba2 broadcast at N = 64), timed beside
+           their bounds; and run one Mamba-1 block forward and backward at
+           the training shape with host syncs made errors.
+  serve_ssm  greedy decode of 8 requests through the dense serve step and
+           ``init_cache`` on the full falcon-mamba-7b (64 layers, random
+           bf16 weights from a seed): O(1) state, no kernel launches.
+  agree_ssm  falcon-mamba at 2 layers of its full widths in fp32, the
+           card's kernel path against the port's plain path on the CPU:
+           greedy streams, and the loss and every gradient of one step.
+  train_ssm  post-balanced AdamW steps of falcon-mamba at full widths and
+           cut depth on text-only batches planned by the port's
+           orchestrator; one line per step, the scan launches held to
+           2 * layers (forward, again under remat) and layers (backward).
+  train_ssm_profile  one more step under torch.profiler: busy share, and
+           the scan kernels' shares.
 
 Then the ``kernels`` summary line, the card's name and power limit, and
 the final status line.  Exits non-zero, printing no result, when no card
@@ -190,7 +210,7 @@ def bound(q, k, masks, H, dtype):
 # ----------------------------------------------------------------------
 # Phases.
 # ----------------------------------------------------------------------
-KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "grouped_gemm.cu")
+KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "grouped_gemm.cu", "selective_scan.cu")
 
 
 def phase_build():
@@ -662,9 +682,11 @@ def train_batches(cfg, n, *, per, seed, scale=1.0, sampler=train_sampler):
 def _counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.kernels import selective_scan as ss
 
     return {"flash_fwd": fa.flash_attention_fwd, "flash_dq": fa.flash_attention_dq,
-            "flash_dkv": fa.flash_attention_dkv, "gmm": gg.gmm, "tgmm": gg.tgmm}
+            "flash_dkv": fa.flash_attention_dkv, "gmm": gg.gmm, "tgmm": gg.tgmm,
+            "ssm_fwd": ss.ssm_fwd, "ssm_bwd": ss.ssm_bwd}
 
 
 def reset_launches():
@@ -680,12 +702,15 @@ def expected_train_launches(cfg):
     """Kernel launches of one training step: per attention layer the
     forward (twice under remat: the backward recomputes it), dq and dk/dv;
     per moe layer three expert products forward (again under remat), their
-    three dx products (gmm) and their three dw products (tgmm)."""
-    n_attn = cfg.n_layers + sum(e.n_layers for e in cfg.encoders)
+    three dx products (gmm) and their three dw products (tgmm); per ssm
+    layer the scan forward (again under remat) and its backward."""
+    n_ssm = cfg.n_layers if cfg.family == "ssm" else 0
+    n_attn = cfg.n_layers - n_ssm + sum(e.n_layers for e in cfg.encoders)
     n_moe = cfg.n_layers if cfg.family == "moe" else 0
     fwd = 2 if cfg.remat else 1
     return {"flash_fwd": fwd * n_attn, "flash_dq": n_attn, "flash_dkv": n_attn,
-            "gmm": (3 * fwd + 3) * n_moe, "tgmm": 3 * n_moe}
+            "gmm": (3 * fwd + 3) * n_moe, "tgmm": 3 * n_moe, "ssm_fwd": fwd * n_ssm,
+            "ssm_bwd": n_ssm}
 
 
 def set_tf32(on: bool) -> dict:
@@ -763,7 +788,7 @@ def phase_train(cfg, batches, caps, redraws, device, phase="train"):
 
 def _kernel_of(key: str) -> str | None:
     """The port's kernel a profiler row belongs to, by its kernel name."""
-    for name in ("flash_fwd", "flash_dq", "flash_dkv", "tgmm", "gmm"):
+    for name in ("flash_fwd", "flash_dq", "flash_dkv", "tgmm", "gmm", "ssm_fwd", "ssm_bwd"):
         if f"{name}_kernel" in key:
             return name
     return None
@@ -789,15 +814,16 @@ def phase_train_profile(step_fn, params, opt_state, batch_np, device,
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     ms = {name: sum(e.self_device_time_total for e in kernels
-                    if _kernel_of(e.key) == name) / 1e3
-          for name in ("flash_fwd", "flash_dq", "flash_dkv", "gmm", "tgmm")}
+                    if _kernel_of(e.key) == name) / 1e3 for name in _counters()}
     flash = {k: ms[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")}
     grouped = {k: ms[k] for k in ("gmm", "tgmm")}
+    scan = {k: ms[k] for k in ("ssm_fwd", "ssm_bwd")}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     emit(phase, step_wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / wall_ms, kernels_per_step=sum(e.count for e in kernels),
          flash_ms=flash, flash_share_of_busy=sum(flash.values()) / busy_ms,
          grouped_ms=grouped, grouped_share_of_busy=sum(grouped.values()) / busy_ms,
+         scan_ms=scan, scan_share_of_busy={k: v / busy_ms for k, v in scan.items()},
          top_kernels=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
                        "calls": e.count} for e in top])
 
@@ -1078,7 +1104,7 @@ def phase_serve_moe(device):
     check_streams(requests, cfg.vocab_size)
     L = cfg.n_layers
     expected = {"flash_fwd": L * calls.calls, "flash_dq": 0, "flash_dkv": 0,
-                "gmm": 3 * L * calls.calls, "tgmm": 0}
+                "gmm": 3 * L * calls.calls, "tgmm": 0, "ssm_fwd": 0, "ssm_bwd": 0}
     fields = dict(
         layers=L, params=sum(p.numel() for p in _leaves(params)),
         max_memory_allocated_gb=torch.cuda.max_memory_allocated(device) / 1e9,
@@ -1200,6 +1226,344 @@ def phase_agree_moe(device):
         raise RuntimeError(f"agree_moe failed: {fields}")
 
 
+# ----------------------------------------------------------------------
+# SSM: falcon-mamba-7b on the selective-scan kernels.
+# ----------------------------------------------------------------------
+SSM_ARCH = "falcon_mamba_7b"
+# Depth of the training run.  All 64 layers (7.27 B parameters) need
+# ~116 GB for bf16 weights and gradients and fp32 AdamW moments; 40
+# layers (4.74 B) fit 80 GB with room for the step's transients (peak in
+# PERF.md).  Serving runs all 64 layers.
+SSM_TRAIN_DEPTH = 40
+# Text-only training batches: d = TRAIN["d"] instances of ``per``
+# examples of 128..1024 tokens (``text_sampler``), as train_moe.
+TRAIN_SSM = dict(per=8, steps=6, seed=0)
+SSM_AGREE = dict(per=4, scale=0.25, seed=5, loss_rel_tol=1e-6, grad_rel_l2_tol=1e-5,
+                 rows=4, new_tokens=16)
+# Greedy decode of ``rows`` requests with prompts of lo..hi tokens, each
+# generating ``new_tokens``.
+SERVE_SSM = dict(rows=8, prompt_lo=8, prompt_hi=48, new_tokens=32, seed=0)
+# Kernel against plain version, relative to the plain result's largest
+# entry: an output stored in bf16 one rounding (2^-7); fp32 outputs 1e-5
+# (the same fp32 terms summed in other orders, over up to ~10^4 steps).
+SSM_TOL = {torch.bfloat16: 2.0**-7, torch.float32: 1e-5}
+# e^x on the special-function units: 16 a clock per SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), 132 SMs at the H100 SXM's 1.98 GHz boost clock.
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+SSM_TIMED_RUNS = 10
+
+
+def ssm_cfg(n_layers=None, dtype="bfloat16"):
+    """falcon-mamba-7b at full widths on the selective-scan kernels;
+    ``n_layers`` cuts the depth (None: all 64)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SSM_ARCH)
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, dtype=dtype)
+
+
+def ssm_bound(kind, Bs, T, di, N, elt, n_ck):
+    """Least time (ms) of one scan kernel call and what bounds it: each
+    input read once and each output written once (the 64-step checkpoints
+    are the forward's output and the backward's input), against the
+    operations the recurrence needs per (step, channel, state): one
+    e^{dt A} on the special-function units, and fp32 operations: 6 forward
+    (dt A; keep*e*h + x B; the <h, C> term) and 19 backward (the state
+    recomputed, 3; the adjoint, 2; <g, B>, 2; g h e, 2; its ddt and dA
+    terms, 4; the dB and dC terms with their channel sums, 4; the carried
+    adjoint, 1; dt A, 1)."""
+    elems = Bs * T * di * N
+    stream = Bs * T * di * elt            # one [B, T, di] tensor in its dtype
+    states = 2 * Bs * T * N * elt + 4 * (di * N + di) + 4 * Bs * T  # B, C; A, D; seg
+    ckpt = 4 * Bs * n_ck * di * N
+    if kind == "fwd":
+        n_bytes = 3 * stream + states + ckpt + 4 * Bs * di * N   # u, dt, y; h_final
+        flops = 6 * elems
+    else:
+        n_bytes = (5 * stream + states + ckpt + 4 * Bs * di * N   # u, dt, dy, du, ddt; dhf
+                   + 4 * (di * N + 2 * Bs * T * N + di))         # dA, dB, dC, dD
+        flops = 19 * elems
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "fp32": flops / PEAK_FLOPS[torch.float32] * 1e3,
+             "exp": elems / SFU_EXP_PER_S * 1e3}
+    worst = max(terms, key=terms.get)
+    return terms[worst], "bytes" if worst == "bytes" else "operations", terms
+
+
+def ssm_inputs(rng, device, dtype, Bs, T, di, N, seg, heads=None):
+    """Scan inputs on the card.  A = -(1..N) per channel (falcon-mamba's
+    init); with ``heads`` = (H, P), zamba2's mamba2 broadcast: dt, A and D
+    per head repeated over its P channels."""
+    def rand(shape, lo=None, hi=None):
+        a = rng.normal(size=shape) if lo is None else rng.uniform(lo, hi, size=shape)
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    if heads is None:
+        dt = rand((Bs, T, di), 0.05, 1.0)
+        A = -torch.arange(1, N + 1, dtype=torch.float32, device=device).expand(di, N)
+        D = rand((di,))
+    else:
+        H, P = heads
+        dt = rand((Bs, T, H), 0.05, 1.0).repeat_interleave(P, dim=-1)
+        A = (-rand((H,), 0.5, 8.0)).repeat_interleave(P)[:, None].expand(di, N)
+        D = rand((H,)).repeat_interleave(P)
+    return dict(u=rand((Bs, T, di)).to(dtype), dt=dt.to(dtype), A=A.contiguous(),
+                B=rand((Bs, T, N)).to(dtype), C=rand((Bs, T, N)).to(dtype),
+                D=D.contiguous(), seg=torch.tensor(seg, dtype=torch.int32, device=device))
+
+
+def ssm_cases(rng, train_seg):
+    """(name, dtype, streams, T, di, N, seg, heads)."""
+    seg_b, _ = packed_layout(rng, 2, 1000, 40, 400)
+    seg_c, _ = packed_layout(rng, 3, 203, 10, 90)
+    seg_d, _ = packed_layout(rng, 2, 2048, 128, 1024)
+    Bs, T = train_seg.shape
+    return [
+        ("a_train_shape", torch.bfloat16, Bs, T, 8192, 16, train_seg, None),
+        ("b_fp32_ragged", torch.float32, 2, 1000, 1024, 16, seg_b, None),
+        ("c_small_n", torch.float32, 3, 203, 200, 4, seg_c, None),
+        ("d_zamba2_broadcast", torch.bfloat16, 2, 2048, 80 * 64, 64, seg_d, (80, 64)),
+    ]
+
+
+def timed_once(fn):
+    """(result, device ms) of one call."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_kernels_ssm(device, train_seg):
+    """ssm_fwd / ssm_bwd against the plain scan and its plain backward at
+    four cases (the first falcon-mamba training batch's shape; fp32 with
+    ragged segments and T no multiple of 64; N = 4 with ragged channels;
+    zamba2's mamba2 broadcast at N = 64), timed beside their bounds; then
+    one Mamba-1 block at the training shape, forward and backward, with
+    host syncs made errors."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_bwd_plain, selective_scan_plain, ssm_bwd, ssm_fwd)
+
+    set_tf32(False)
+    rng = np.random.default_rng(4)
+    results = {}
+    for name, dtype, Bs, T, di, N, seg, heads in ssm_cases(rng, train_seg):
+        x = ssm_inputs(rng, device, dtype, Bs, T, di, N, seg, heads)
+        args = (x["u"], x["dt"], x["A"], x["B"], x["C"], x["D"], x["seg"])
+        dy = torch.tensor(rng.normal(size=(Bs, T, di)), dtype=dtype, device=device)
+        dhf = torch.tensor(rng.normal(size=(Bs, di, N)), dtype=torch.float32, device=device)
+        y, ckpt, hf = ssm_fwd(*args)
+        got = ssm_bwd(*args, ckpt, dy, dhf)
+        (ref_y, ref_hf), fwd_plain_ms = timed_once(lambda: selective_scan_plain(*args))
+        ref, bwd_plain_ms = timed_once(lambda: selective_scan_bwd_plain(*args, dy, dhf))
+        errors = {}
+        for label, a, b in zip(("y", "h_final", "du", "ddt", "dA", "dB", "dC", "dD"),
+                               (y, hf, *got), (ref_y, ref_hf, *ref)):
+            scale = float(b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            errors[label] = dict(max_abs_err=err, ref_max_abs=scale, dtype=str(a.dtype),
+                                 tol=SSM_TOL[a.dtype] * max(scale, 1e-30),
+                                 finite=bool(torch.isfinite(a.float()).all()))
+            errors[label]["ok"] = errors[label]["finite"] and err <= errors[label]["tol"]
+        del got, ref, ref_y, ref_hf
+        n_ck = ckpt.shape[1]
+        fb, fb_by, fb_terms = ssm_bound("fwd", Bs, T, di, N, x["u"].element_size(), n_ck)
+        bb, bb_by, bb_terms = ssm_bound("bwd", Bs, T, di, N, x["u"].element_size(), n_ck)
+        row = dict(
+            case=name, dtype=str(dtype).replace("torch.", ""), streams=Bs, T=T, di=di, N=N,
+            heads=heads, segments=[int(s.max()) for s in seg], padding_rows=int((seg == 0).sum()),
+            errors=errors,
+            fwd_ms=median_ms(lambda: ssm_fwd(*args), runs=SSM_TIMED_RUNS),
+            bwd_ms=median_ms(lambda: ssm_bwd(*args, ckpt, dy, dhf), runs=SSM_TIMED_RUNS),
+            fwd_plain_ms=fwd_plain_ms, bwd_plain_ms=bwd_plain_ms,
+            fwd_bound_ms=fb, fwd_bound_by=fb_by, fwd_bound_terms_ms=fb_terms,
+            bwd_bound_ms=bb, bwd_bound_by=bb_by, bwd_bound_terms_ms=bb_terms,
+            library_ms=None,
+            fwd_max_abs_err=max(errors[k]["max_abs_err"] for k in ("y", "h_final")),
+            bwd_max_abs_err=max(errors[k]["max_abs_err"]
+                                for k in ("du", "ddt", "dA", "dB", "dC", "dD")))
+        row["ok"] = all(e["ok"] for e in errors.values())
+        emit("kernels_ssm", **row)
+        del x, args, dy, dhf, y, ckpt, hf
+        if not row["ok"]:
+            raise RuntimeError(f"selective scan disagrees with its plain version: {row}")
+        results[name] = row
+    results["no_host_sync"] = ssm_block_without_sync(device, train_seg)
+    torch.cuda.empty_cache()
+    return results
+
+
+def ssm_block_without_sync(device, train_seg):
+    """One falcon-mamba layer (full widths, random weights) at the first
+    training batch's shape, forward and backward under
+    ``set_sync_debug_mode("error")``: any read of a length or segment id
+    back to the host raises."""
+    from repro_torch.models.model import init_params
+    from repro_torch.models.ssm import mamba1_block
+
+    cfg = ssm_cfg(n_layers=1)
+    lp = {k: v[0].clone().requires_grad_() for k, v in
+          init_params(cfg, seed=3, device=device)["layers"].items() if k != "norm"}
+    Bs, T = train_seg.shape
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = (torch.randn((Bs, T, cfg.d_model), generator=gen, device=device)
+         .to(torch.bfloat16).requires_grad_())
+    seg = torch.tensor(train_seg, dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = mamba1_block(lp, x, seg, ssm_state=cfg.ssm_state, backend="pallas",
+                           block_d=cfg.ssm_block_d, chunk=cfg.ssm_chunk)
+        grads = torch.autograd.grad(out.float().square().mean(), [x, *lp.values()])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    fields = dict(tokens=int((train_seg > 0).sum()), slots=Bs * T,
+                  out_finite=bool(torch.isfinite(out.float()).all()),
+                  grads_finite=all(bool(torch.isfinite(g.float()).all()) for g in grads))
+    emit("kernels_ssm", no_host_sync=fields)
+    if not all(fields.values()):
+        raise RuntimeError(f"Mamba-1 block at the training shape failed: {fields}")
+    return fields
+
+
+def greedy_serve(cfg, params, device, *, rows, prompt_lo, prompt_hi, new_tokens, seed,
+                 timed=False):
+    """Greedy decode through the dense ``make_serve_step`` from
+    ``init_cache``: every row consumes one token per step, its prompt and
+    then its own generated tokens, until each row has generated
+    ``new_tokens``.  Returns (streams, per-step wall ms or None)."""
+    from repro_torch.serving.serve_step import init_cache, make_serve_step
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
+               for n in rng.integers(prompt_lo, prompt_hi + 1, size=rows)]
+    steps = max(len(p) for p in prompts) - 1 + new_tokens
+    cache = init_cache(cfg, rows, steps + 1, device=device)
+    step = make_serve_step(cfg)
+    streams = [[] for _ in range(rows)]
+    feed = [int(p[0]) for p in prompts]
+    wall = []
+    for t in range(steps):
+        tok = torch.tensor(feed, dtype=torch.long, device=device)[:, None]
+        if timed:
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+        nxt, logits, cache = step(params, tok, cache, t)
+        nxt = nxt[:, 0].tolist()
+        if timed:
+            wall.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(logits).all()):
+            raise RuntimeError(f"decode step {t} gave non-finite logits")
+        for b, p in enumerate(prompts):
+            if t + 1 < len(p):
+                feed[b] = int(p[t + 1])
+            else:
+                if len(streams[b]) < new_tokens:
+                    streams[b].append(nxt[b])
+                feed[b] = nxt[b]
+    return streams, (wall if timed else None)
+
+
+def phase_serve_ssm(device):
+    """The full falcon-mamba (64 layers, random bf16 weights from a seed)
+    served greedily through the dense serve step: an O(1) state per
+    sequence, and no kernel on the path (every launch count must stay 0)."""
+    from repro_torch.configs import cache_specs
+    from repro_torch.models.model import init_params
+
+    cfg = ssm_cfg()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = init_params(cfg, seed=0, device=device)
+    weights_gb = torch.cuda.memory_allocated(device) / 1e9
+    reset_launches()
+    s = SERVE_SSM
+    t0 = time.perf_counter()
+    streams, wall = greedy_serve(cfg, params, device, rows=s["rows"],
+                                 prompt_lo=s["prompt_lo"], prompt_hi=s["prompt_hi"],
+                                 new_tokens=s["new_tokens"], seed=s["seed"], timed=True)
+    total_s = time.perf_counter() - t0
+    launches = read_launches()
+    generated = sum(len(x) for x in streams)
+    state = cache_specs(cfg, 1, 1)
+    state_bytes = sum(int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+                      for shape, dt in state.values())
+    fields = dict(
+        layers=cfg.n_layers, params=sum(p.numel() for p in _leaves(params)),
+        weights_gb=weights_gb, rows=s["rows"], steps=len(wall), generated_tokens=generated,
+        decode_step_ms_mean=statistics.mean(wall[1:]),
+        decode_step_ms_median=statistics.median(wall[1:]), first_step_ms=wall[0],
+        decode_tokens_per_s=s["rows"] * len(wall) / total_s,
+        generated_tokens_per_s=generated / total_s,
+        state_bytes_per_sequence=state_bytes,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+        launches=launches)
+    emit("serve_ssm", **fields)
+    ok = all(len(x) == s["new_tokens"] and all(0 <= t < cfg.vocab_size for t in x)
+             for x in streams)
+    if not ok or any(launches.values()):
+        raise RuntimeError(f"serve_ssm phase failed: {fields}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_agree_ssm(device):
+    """falcon-mamba at 2 layers of its full widths in fp32: the card's
+    kernel path against the port's plain path on the CPU, same weights and
+    inputs: greedy streams, and the loss and every gradient of one step."""
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_step import batch_to_device, make_loss_fn
+
+    tf32 = set_tf32(False)
+    a = SSM_AGREE
+    cfg = ssm_cfg(n_layers=2, dtype="float32")
+    devices = {"cpu": torch.device("cpu"), "card": device}
+    params = {"card": init_params(cfg, seed=1, device=device)}
+    params["cpu"] = tree_map(lambda t: t.cpu(), params["card"])
+    serve = dict(SERVE_SSM, rows=a["rows"], new_tokens=a["new_tokens"], seed=1)
+    streams = {side: greedy_serve(cfg, p, devices[side], **serve)[0]
+               for side, p in params.items()}
+    mismatched = [i for i, (x, y) in enumerate(zip(streams["card"], streams["cpu"]))
+                  if x != y]
+
+    [(batch_np, _)], caps, _ = train_batches(cfg, 1, per=a["per"], seed=a["seed"],
+                                             scale=a["scale"], sampler=text_sampler)
+    out = {}
+    for side in ("cpu", "card"):
+        reset_launches()
+        leaves = tree_leaves(params[side])
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, m = make_loss_fn(cfg)(params[side], batch_to_device(batch_np, devices[side]))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        out[side] = (loss.detach().cpu(), [g.detach().cpu() for g in grads],
+                     int(m["tokens"]), read_launches())
+    (lk, gk, tokens, card_launches), (lc, gc, _, _) = out["card"], out["cpu"]
+    names = list(_flat_names(params["cpu"]))
+    rel = {n: float((x.double() - y.double()).norm() / y.double().norm().clamp_min(1e-30))
+           for n, x, y in zip(names, gk, gc)}
+    worst = max(rel, key=rel.get)
+    loss_rel = float((lk - lc).abs() / lc.abs())
+    finite = bool(torch.isfinite(lk)) and all(bool(torch.isfinite(g).all()) for g in gk)
+    expected = {k: 0 for k in card_launches}
+    expected.update(ssm_fwd=2 * cfg.n_layers, ssm_bwd=cfg.n_layers)  # remat
+    fields = dict(layers=2, dtype=cfg.dtype, streams_equal=not mismatched,
+                  mismatched=mismatched, generated=sum(len(t) for t in streams["cpu"]),
+                  cap_T=caps.llm, tokens=tokens, loss_card=float(lk), loss_cpu=float(lc),
+                  loss_rel_err=loss_rel, loss_rel_tol=a["loss_rel_tol"], worst_leaf=worst,
+                  worst_grad_rel_l2=rel[worst], grad_rel_l2_tol=a["grad_rel_l2_tol"],
+                  leaves=len(rel), finite=finite, card_launches=card_launches, **tf32)
+    emit("agree_ssm", **fields)
+    if (mismatched or not finite or loss_rel > a["loss_rel_tol"]
+            or rel[worst] > a["grad_rel_l2_tol"] or card_launches != expected):
+        raise RuntimeError(f"agree_ssm failed: {fields}")
+
+
 def _flat_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -1250,6 +1614,11 @@ def main() -> int:
     first_seg = moe_batches[0][0]["seg"]
     k = mcfg.experts_per_token
     kern_moe = phase_kernels_moe(device, first_seg.size * k, int((first_seg > 0).sum()) * k)
+    scfg = ssm_cfg(SSM_TRAIN_DEPTH)
+    ssm_batches, ssm_caps, ssm_redraws = train_batches(
+        scfg, TRAIN_SSM["steps"], per=TRAIN_SSM["per"], seed=TRAIN_SSM["seed"],
+        sampler=text_sampler)
+    kern_ssm = phase_kernels_ssm(device, ssm_batches[0][0]["seg"])
 
     cfg = get_config("mllm_10b", attention_backend="flash")
     torch.cuda.reset_peak_memory_stats(device)
@@ -1277,6 +1646,16 @@ def main() -> int:
                         phase="train_moe_profile")
     del params, opt_state, step_fn
     torch.cuda.empty_cache()
+
+    phase_serve_ssm(device)
+    phase_agree_ssm(device)
+    torch.cuda.empty_cache()
+    params, opt_state, step_fn, ssm_launches, _ = phase_train(
+        scfg, ssm_batches, ssm_caps, ssm_redraws, device, phase="train_ssm")
+    phase_train_profile(step_fn, params, opt_state, ssm_batches[-1][0], device,
+                        phase="train_ssm_profile")
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
     if "jax" in sys.modules or "repro" in sys.modules:
         raise RuntimeError("the smoke run imported jax or the JAX package")
 
@@ -1296,8 +1675,18 @@ def main() -> int:
     gmm_row["launches_serve"] = serve_moe_launches["gmm"]
     tgmm_row = kernel_row("tgmm", "grouped_gemm.cu", 105, moe_launches["tgmm"],
                           moe_step["dw_gate_up"], "ms", "bound", module="grouped_gemm.py")
+    scan_step = kern_ssm["a_train_shape"]
+    scan_rows = [
+        {"name": f"ssm_{kind}", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+         "replaces": f"src/repro/kernels/selective_scan.py:{line}",
+         "launches": ssm_launches[f"ssm_{kind}"],
+         "max_abs_err": scan_step[f"{kind}_max_abs_err"], "ms": scan_step[f"{kind}_ms"],
+         "plain_ms": scan_step[f"{kind}_plain_ms"], "bound_ms": scan_step[f"{kind}_bound_ms"],
+         "bound_by": scan_step[f"{kind}_bound_by"], "library_ms": None}
+        for kind, line in (("fwd", 50), ("bwd", 87))]
     emit("done", seconds=time.perf_counter() - t0)
-    print(json.dumps({"kernels": [fwd, dq, dkv, gmm_row, tgmm_row]}))
+    print(json.dumps({"kernels": [fwd, dq, dkv, gmm_row, tgmm_row, *scan_rows]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True)

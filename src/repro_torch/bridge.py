@@ -26,8 +26,9 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-# Leaves the JAX package keeps in fp32 whatever the model's dtype.
-FP32_LEAVES = frozenset({"router"})
+# Leaves the JAX package keeps in fp32 whatever the model's dtype: the MoE
+# router and the SSM decay (``A_log``) and skip (``D``) parameters.
+FP32_LEAVES = frozenset({"router", "A_log", "D"})
 
 
 def params_from_numpy(tree: dict, *, device, dtype: torch.dtype | None = None) -> dict:

@@ -12,12 +12,12 @@ from repro_torch.configs.base import (
     ModelConfig,
     with_attention_backend,
 )
-from repro_torch.configs.registry import paged_cache_specs
+from repro_torch.configs.registry import cache_specs, paged_cache_specs
 
 __all__ = ["ARCHITECTURES", "EncoderConfig", "EngineConfig", "ModelConfig",
-           "get_config", "paged_cache_specs", "with_attention_backend"]
+           "cache_specs", "get_config", "paged_cache_specs", "with_attention_backend"]
 
-ARCHITECTURES = ("mllm_10b", "granite_moe_3b_a800m")
+ARCHITECTURES = ("mllm_10b", "granite_moe_3b_a800m", "falcon_mamba_7b")
 
 
 def get_config(name: str, *, attention_backend: str | None = None) -> ModelConfig:

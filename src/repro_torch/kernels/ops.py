@@ -10,8 +10,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.grouped_gemm import GroupedMatmul, check_grouped_args
+from repro_torch.kernels.selective_scan import selective_scan
 
-__all__ = ["flash_attention_op", "grouped_matmul_op"]
+__all__ = ["flash_attention_op", "grouped_matmul_op", "selective_scan_op"]
 
 
 def flash_attention_op(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *, causal=True,
@@ -32,3 +33,13 @@ def grouped_matmul_op(x, w, group_offsets, *, block_m=128, block_n=128):
     package's ``grouped_matmul`` refuses, blocks included."""
     check_grouped_args(x, w, group_offsets, block_m=block_m, block_n=block_n)
     return GroupedMatmul.apply(x, w, group_offsets.to(torch.int32))
+
+
+def selective_scan_op(u, delta, A, B, C, D, seg, *, block_d=128, chunk=64,
+                      return_state=False):
+    """Mamba-1 selective scan over u, delta ``[T, di]`` or ``[Bs, T, di]``
+    (forward and backward kernels on CUDA, plain versions on CPU); returns
+    y, or ``(y, h_final)`` with ``return_state``.  Refuses what the JAX
+    package's ``selective_scan`` refuses, blocks included."""
+    return selective_scan(u, delta, A, B, C, D, seg, block_d=block_d, chunk=chunk,
+                          return_state=return_state)

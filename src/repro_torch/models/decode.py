@@ -1,4 +1,4 @@
-"""Single-token decode for the dense/moe/vlm families
+"""Single-token decode for the dense/moe/vlm and ssm families
 (``repro.models.decode`` in PyTorch).
 
 Cache layouts (see ``configs.registry.paged_cache_specs``):
@@ -13,8 +13,12 @@ Cache layouts (see ``configs.registry.paged_cache_specs``):
   are dropped and its logits are garbage the caller ignores.
 
 Unlike the JAX package, which returns new cache arrays, the port writes
-the new token's k/v/pos/seg into the given cache tensors in place (the
-pool is the largest tensor after the weights) and returns the same dict.
+the new token's k/v/pos/seg (or ssm state) into the given cache tensors in
+place (the pool is the largest tensor after the weights) and returns the
+same dict.  One exception keeps the JAX package's numbers: its conv window
+takes the dtype of the concatenation of window and new input, so an fp32
+model's bf16 window (``cache_specs``) becomes fp32 on the first step; the
+port then replaces the window by an fp32 copy.
 The layer ``scan`` is a Python loop over ``params["layers"][key][l]``.
 """
 from __future__ import annotations
@@ -25,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attention
 from repro_torch.models.layers import apply_rope, layer_norm, rms_norm, rotary_embedding, swiglu
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.ssm import mamba1_decode_step
 
 __all__ = ["decode_step"]
 
@@ -154,6 +159,21 @@ def _decode_dense_paged(cfg, params, x, cache, t, block_tables):
                           (block_tables, rows, wblk, woff))
 
 
+def _decode_ssm(cfg, params, x, cache):
+    conv, h = cache["conv"], cache["h"]
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        o, st = mamba1_decode_step(lp, rms_norm(x, lp["norm"]),
+                                   {"conv": conv[l], "h": h[l]}, ssm_state=cfg.ssm_state)
+        if st["conv"].dtype != conv.dtype:
+            conv = conv.to(st["conv"].dtype)
+        conv[l] = st["conv"]
+        h[l] = st["h"]
+        x = x + o
+    cache["conv"] = conv
+    return x
+
+
 def _final(cfg, params, x):
     if cfg.nonparametric_norm:
         return layer_norm(x, None, None)
@@ -167,11 +187,15 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, t, *, block_tables=None
     ``params``; the cache is updated in place.
 
     Returns (logits [B, vocab] fp32, cache)."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise ValueError(f"the port decodes dense/moe/vlm families, not {cfg.family!r}")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+        raise ValueError(f"the port decodes dense/moe/vlm/ssm families, not {cfg.family!r}")
     x = params["embed"][tokens[:, 0]]  # [B,D]
     if block_tables is not None:
+        if cfg.family == "ssm":
+            raise ValueError("paged decode supports dense/moe/vlm families, not 'ssm'")
         x = _decode_dense_paged(cfg, params, x, cache, t, block_tables)
+    elif cfg.family == "ssm":
+        x = _decode_ssm(cfg, params, x, cache)
     else:
         x = _decode_dense(cfg, params, x, cache, t)
     x = _final(cfg, params, x)

@@ -1,6 +1,7 @@
-"""Model assembly for the dense/moe/vlm families (``repro.models.model``
-in PyTorch): parameter init with the modality encoders, the training
-forward over post-balanced batches, and the chunked cross-entropy.
+"""Model assembly for the dense/moe/vlm and ssm families
+(``repro.models.model`` in PyTorch): parameter init with the modality
+encoders, the training forward over post-balanced batches, and the
+chunked cross-entropy.
 
 Parameters are a dict of tensors with the JAX package's keys and stacked
 ``[L, ...]`` layer shapes.  They are made directly on the target device
@@ -62,18 +63,33 @@ def _init_encoder(e: EncoderConfig, d_llm: int, dense, ones) -> Params:
     return p
 
 
+def _init_mamba1(cfg: ModelConfig, dense, ones, device) -> Params:
+    """A Mamba-1 layer stack.  ``A_log`` (log 1..N per channel) and ``D``
+    are fp32 whatever the model's dtype, as in the JAX package."""
+    L, D, di, N, K = cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    dt_rank = max(1, D // 16)
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device=device))
+    return {"norm": ones((L, D)), "in_proj": dense((L, D, 2 * di)),
+            "conv_w": dense((L, K, di), scale=0.5),
+            "x_proj": dense((L, di, dt_rank + 2 * N)), "dt_proj": dense((L, dt_rank, di)),
+            "dt_bias": torch.zeros((L, di), dtype=torch_dtype(cfg), device=device),
+            "A_log": a_log.expand(L, di, N).contiguous(),
+            "D": torch.ones((L, di), dtype=torch.float32, device=device),
+            "out_proj": dense((L, di, D))}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
-    """Parameters of a dense/moe/vlm config: the backbone and, under
+    """Parameters of a dense/moe/vlm/ssm config: the backbone and, under
     ``encoder_<name>``, each modality encoder with its connector.  An moe
     layer stack holds the router ``[L, D, E]`` in fp32 whatever the
-    model's dtype, and experts ``[L, E, D, F]`` / ``[L, E, F, D]``."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise ValueError(f"the port builds dense/moe/vlm backbones, not {cfg.family!r}")
+    model's dtype, and experts ``[L, E, D, F]`` / ``[L, E, F, D]``; an ssm
+    stack is Mamba-1 layers (``_init_mamba1``)."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+        raise ValueError(f"the port builds dense/moe/vlm/ssm backbones, not {cfg.family!r}")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = torch_dtype(cfg)
-    D, F, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
-    hd, H, Hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    D, V = cfg.d_model, cfg.vocab_size
 
     def dense(shape, scale=None):
         return _dense(shape, dt, device, gen, scale)
@@ -82,6 +98,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
         return torch.ones(shape, dtype=dt, device=device)
 
     params: Params = {"embed": dense((V, D), scale=1.0)}
+    if cfg.family == "ssm":
+        params["layers"] = _init_mamba1(cfg, dense, ones, device)
+    else:
+        params["layers"] = _init_attn_layers(cfg, dense, ones, device, gen)
+    if not cfg.nonparametric_norm:
+        params["final_norm"] = ones((D,))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((D, V))
+    for e in cfg.encoders:
+        params[f"encoder_{e.name}"] = _init_encoder(e, D, dense, ones)
+    return params
+
+
+def _init_attn_layers(cfg: ModelConfig, dense, ones, device, gen) -> Params:
+    """An attention + (SwiGLU | MoE) layer stack."""
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    hd, H, Hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
     layers: Params = {}
     if not cfg.nonparametric_norm:
         layers.update(attn_norm=ones((L, D)), mlp_norm=ones((L, D)))
@@ -97,14 +130,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
     else:
         layers.update(w_gate=dense((L, D, F)), w_up=dense((L, D, F)),
                       w_down=dense((L, F, D)))
-    params["layers"] = layers
-    if not cfg.nonparametric_norm:
-        params["final_norm"] = ones((D,))
-    if not cfg.tie_embeddings:
-        params["lm_head"] = dense((D, V))
-    for e in cfg.encoders:
-        params[f"encoder_{e.name}"] = _init_encoder(e, D, dense, ones)
-    return params
+    return layers
 
 
 # ----------------------------------------------------------------------
@@ -246,8 +272,8 @@ def forward(cfg: ModelConfig, params: Params, batch: dict, *,
     the moe family ``decoder_stack``'s dict of routing metrics.
     ``exchange(name, tokens)`` moves encoder-output tokens to their
     destination streams."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise ValueError(f"the port's forward runs dense/moe/vlm, not {cfg.family!r}")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+        raise ValueError(f"the port's forward runs dense/moe/vlm/ssm, not {cfg.family!r}")
     tokens = batch["tokens"].long()
     if cfg.encoders:
         S = tokens.shape[0]

@@ -1,5 +1,5 @@
 """Decoder and encoder stacks (``repro.models.transformer`` in PyTorch,
-the dense/moe/vlm and encoder paths).
+the dense/moe/vlm, ssm and encoder paths).
 
 Layer parameters are stacked on a leading ``[L, ...]`` axis, as in the
 JAX package.  Where JAX scans one layer body over that axis, the port
@@ -9,7 +9,9 @@ backward stacks the layer gradients into one ``[L, ...]`` gradient.
 reentrant): the backward recomputes the layer's forward, so an attention
 layer runs its forward kernel twice per training step.  An moe layer
 returns ``(x, aux)`` from the checkpointed body, with the routing aux
-metrics of :func:`repro_torch.models.moe.moe_ffn`.
+metrics of :func:`repro_torch.models.moe.moe_ffn`.  An ssm layer is a
+pre-norm Mamba-1 block with a residual; under remat it runs the
+selective-scan forward twice per training step.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.models.layers import (
     swiglu,
 )
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.ssm import mamba1_block
 
 __all__ = ["decoder_stack", "encoder_stack"]
 
@@ -117,12 +120,35 @@ def _run_layers(cfg: ModelConfig, stacked: Params, x, seg, pos, *, causal):
     return x, auxs
 
 
+def _ssm_kwargs(cfg: ModelConfig) -> dict:
+    """Backend/block kwargs for the mamba blocks.  The scan backend keeps
+    its chunking defaults; the pallas backend (the CUDA kernels in the
+    port) takes block_d/chunk from the config.  The port has no autotune
+    cache: the blocks are the config's, as in the JAX package with
+    ``kernel_autotune`` off."""
+    if cfg.ssm_backend != "pallas":
+        return {}
+    return dict(backend="pallas", block_d=cfg.ssm_block_d, chunk=cfg.ssm_chunk)
+
+
+def _mamba1_layer(cfg: ModelConfig, p: Params, x, seg, ssm_kw):
+    h = _norm(cfg, x, p.get("norm"))
+    return x + mamba1_block(p, h, seg, ssm_state=cfg.ssm_state, **ssm_kw)
+
+
 def decoder_stack(cfg: ModelConfig, params: Params, x, seg, pos):
-    """x [B,T,D] -> ([B,T,D], aux).  For dense/vlm aux is the scalar aux
-    loss, 0; for moe a dict: ``lb_loss`` summed over layers,
+    """x [B,T,D] -> ([B,T,D], aux).  For dense/vlm/ssm aux is the scalar
+    aux loss, 0; for moe a dict: ``lb_loss`` summed over layers,
     ``expert_load`` [E] and ``dropped_frac`` averaged over layers."""
+    if cfg.family == "ssm":
+        ssm_kw = _ssm_kwargs(cfg)
+        for lp in _layer_slices(params["layers"]):
+            body = functools.partial(_mamba1_layer, cfg, lp, seg=seg, ssm_kw=ssm_kw)
+            x = checkpoint(body, x, use_reentrant=False) if cfg.remat else body(x)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise ValueError(f"the port's decoder_stack runs dense/moe/vlm, not {cfg.family!r}")
+        raise ValueError(
+            f"the port's decoder_stack runs dense/moe/vlm/ssm, not {cfg.family!r}")
     x, auxs = _run_layers(cfg, params["layers"], x, seg, pos, causal=True)
     if cfg.family == "moe":
         return x, {

@@ -1,5 +1,5 @@
-"""Serving steps: paged decode and chunked prefill
-(``repro.serving.serve_step`` in PyTorch, greedy sampling).
+"""Serving steps: dense and paged decode, chunked prefill and the dense
+decode cache (``repro.serving.serve_step`` in PyTorch, greedy sampling).
 
 ``make_serve_step(cfg, paged=True)`` is the continuous-batching decode
 step: the cache is the paged KV pool (``registry.paged_cache_specs``),
@@ -17,9 +17,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, with_attention_backend
+from repro_torch.configs.registry import cache_specs
 from repro_torch.models.decode import decode_step
+from repro_torch.utils import resolve_device, zeros_like_specs
 
-__all__ = ["greedy_sample", "make_prefill_step", "make_serve_step"]
+__all__ = ["greedy_sample", "init_cache", "make_prefill_step", "make_serve_step"]
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -76,3 +78,9 @@ def make_prefill_step(cfg: ModelConfig, *, attention_backend: str | None = None)
         return greedy_sample(last), last, cache
 
     return prefill_step
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device="cuda"):
+    """Zero-initialised dense decode cache matching ``registry.cache_specs``
+    (the KV cache, or for the ssm family the O(1) conv window and state)."""
+    return zeros_like_specs(cache_specs(cfg, batch, seq_len), resolve_device(device))

@@ -11,6 +11,8 @@ from repro.configs.registry import paged_cache_specs as jax_paged_cache_specs
 from repro.core.cost_model import serving_cost_model as jax_serving_cost_model
 from repro_torch.configs import ARCHITECTURES, get_config, paged_cache_specs
 from repro_torch.core.cost_model import serving_cost_model
+from repro_torch.models.model import init_params
+from repro_torch.training.optimizer import tree_leaves
 
 
 def _variants(name):
@@ -32,6 +34,22 @@ def test_mllm_10b_widths():
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
             cfg.d_ff, cfg.vocab_size, cfg.dtype) == (
         28, 3584, 28, 4, 128, 18944, 152064, "bfloat16")
+
+
+def test_falcon_mamba_7b_widths():
+    cfg = get_config("falcon_mamba_7b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+            cfg.ssm_conv, max(1, cfg.d_model // 16), cfg.vocab_size, cfg.ssm_backend,
+            cfg.dtype) == ("ssm", 64, 4096, 8192, 16, 4, 256, 65024, "pallas", "bfloat16")
+    # param_count() (the JAX package's formula) leaves out the stacked norm
+    # scales [L, D] and dt_bias [L, di] and the final norm; the weights
+    # init_params makes hold them too (checked on the smoke config)
+    extra = lambda c: c.n_layers * (c.d_model + c.d_inner) + c.d_model  # noqa: E731
+    smoke = cfg.smoke()
+    made = sum(t.numel() for t in tree_leaves(init_params(smoke, seed=0, device="cpu")))
+    assert made == smoke.param_count() + extra(smoke)
+    assert cfg.param_count() == 7_271_350_272
+    assert cfg.param_count() + extra(cfg) == 7_272_140_800
 
 
 @pytest.mark.parametrize("impl,decode", [("flash", "flash"), ("reference", "reference"),

@@ -27,6 +27,11 @@ MOE_SLICE = {
     "repro_torch.configs.granite_moe_3b_a800m", "repro_torch.kernels.grouped_gemm",
     "repro_torch.models.moe",
 }
+# The SSM slice's modules.
+SSM_SLICE = {
+    "repro_torch.configs.falcon_mamba_7b", "repro_torch.configs.registry",
+    "repro_torch.kernels.selective_scan", "repro_torch.models.ssm",
+}
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -69,3 +74,8 @@ def test_moe_slice_modules_are_in_the_walk():
     """The import walk of the first test reaches the MoE slice's modules
     (so they too import with JAX and the JAX package blocked)."""
     assert MOE_SLICE <= set(_modules())
+
+
+def test_ssm_slice_modules_are_in_the_walk():
+    """The import walk of the first test reaches the SSM slice's modules."""
+    assert SSM_SLICE <= set(_modules())

@@ -135,3 +135,27 @@ def test_granite_moe_text_batches_bit_identical():
         assert set(batch_t) == {"tokens", "labels", "seg", "pos"}
         _assert_same(batch_t, batch_j, "batch")
         _assert_same(_report_dict(rep_t), _report_dict(rep_j))
+
+
+def test_falcon_mamba_text_batches_bit_identical():
+    """falcon-mamba-7b's smoke config: the text-only packing with the ssm
+    family's LLM cost model gives the JAX package's capacities, batches
+    and reports."""
+    tcfg = get_config("falcon_mamba_7b").smoke()
+    jcfg = jax_get_config("falcon_mamba_7b").smoke()
+    d, per = 2, 8
+    mine, ref = MLLMGlobalOrchestrator(tcfg, d), JaxOrchestrator(jcfg, d)
+    assert dataclasses.asdict(tcm.llm_cost_model(tcfg)) == \
+        dataclasses.asdict(jcm.llm_cost_model(jcfg))
+    assert tcm.phase_flops_per_unit(tcfg) == jcm.phase_flops_per_unit(jcfg)
+    caps_t = mine.default_capacities(_draw(sample_examples, d, per, 5, True), margin=3.0)
+    caps_j = ref.default_capacities(_draw(jax_sample_examples, d, per, 5, True), margin=3.0)
+    assert dataclasses.asdict(caps_t) == dataclasses.asdict(caps_j)
+    for it in range(2):
+        batch_t, rep_t = mine.plan_and_pack(_draw(sample_examples, d, per, 50 + it, True),
+                                            caps_t, np.random.default_rng(it))
+        batch_j, rep_j = ref.plan_and_pack(_draw(jax_sample_examples, d, per, 50 + it, True),
+                                           caps_j, np.random.default_rng(it))
+        assert set(batch_t) == {"tokens", "labels", "seg", "pos"}
+        _assert_same(batch_t, batch_j, "batch")
+        _assert_same(_report_dict(rep_t), _report_dict(rep_j))
