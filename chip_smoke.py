@@ -9,7 +9,8 @@ Phases, each printed as one JSON line and each raising on failure:
            backward, the grouped GEMMs, the selective scan) from the
            checkout's sources, one nvcc per source, all started together;
            print nvcc's time and ptxas' register, shared-memory and spill
-           lines.
+           lines; require HGMMA (wgmma) and UTMALDG (TMA loads) in the
+           SASS of every bf16 grouped-GEMM kernel.
   kernels  hold the forward kernel against its plain PyTorch version on
            the card at four cases (the mllm_10b decode shape; a packed
            bf16 stream of 4096 tokens; fp32 with a window and GQA;
@@ -39,13 +40,18 @@ Phases, each printed as one JSON line and each raising on failure:
   train_agree  loss and every parameter gradient of the kernel path
            against the reference backend at 2 layers of each stack, fp32.
   kernels_moe  hold the grouped-GEMM kernels (gmm, its transposed form for
-           dx, tgmm for dw) against their plain versions at four cases of
-           granite-moe-3b-a800m's widths (the decode shape; the first MoE
-           training batch's shapes; fp32 with empty experts and padding
-           rows, which must come out exactly 0; skewed routing), timed
-           beside torch's grouped product (a yardstick the port never
-           calls); and run one MoE block forward and backward at the
-           training shape with host syncs made errors.
+           dx, tgmm for dw) against their plain versions at five cases:
+           four of granite-moe-3b-a800m's widths (the decode shape; the
+           first MoE training batch's shapes; fp32 with empty experts and
+           padding rows, which must come out exactly 0; skewed routing)
+           and one at the bf16 kernels' edges (512 experts, empty ones at
+           both ends, experts of 1, 127, 128 and 129 rows, padding rows,
+           K = 136 and N = 200); tgmm must give bitwise-equal dw from two
+           launches.  Each product is timed beside torch's grouped product
+           (a yardstick the port never calls) and reported with its tile
+           count, TFLOP/s, share of its bound and ratio to the library
+           time.  Then one MoE block forward and backward at the training
+           shape with host syncs made errors.
   serve_moe  serve requests through ``Engine`` on the full granite-moe
            (32 layers, random bf16 weights from a seed), counting the
            flash and gmm launches of every decode step.
@@ -232,7 +238,31 @@ def phase_build():
                  if "registers" in ln or "spill" in ln or "smem" in ln]
         emit("build", source=source, library=lib.name, built_now=built, nvcc_s=seconds,
              ptxas=lines)
+        if source == "grouped_gemm.cu":
+            grouped_sass(lib)
     emit("build", wall_s=time.perf_counter() - t0)
+
+
+def grouped_sass(lib):
+    """The bf16 grouped GEMMs must multiply with wgmma and load by TMA: count
+    HGMMA and UTMALDG in each kernel of the library's SASS (cuobjdump)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = {"HGMMA": 0, "UTMALDG": 0}
+        elif name is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[name][op] += f" {op}." in line or f" {op} " in line
+    hopper = {k: v for k, v in counts.items() if "hopper_kernel" in k}
+    excerpt = [ln.strip() for ln in sass.splitlines() if "HGMMA" in ln or "UTMALDG" in ln][:4]
+    emit("build", source="grouped_gemm.cu", sass_counts=hopper, sass_excerpt=excerpt)
+    if not hopper or not all(v["HGMMA"] and v["UTMALDG"] for v in hopper.values()):
+        raise RuntimeError(f"the bf16 grouped GEMMs lack wgmma or TMA loads: {counts}")
 
 
 def phase_kernels(device):
@@ -786,10 +816,20 @@ def phase_train(cfg, batches, caps, redraws, device, phase="train"):
     return params, opt_state, step_fn, totals, summary
 
 
+# The port's kernels by the names the profiler shows (tgmm before gmm: the
+# fp32 "tgmm_kernel" contains "gmm_kernel").  The bf16 grouped GEMMs are one
+# template, hopper_kernel<TGMM, ...>, and tgmm's second pass adds its pieces.
+_KERNEL_NAMES = (("flash_fwd", ("flash_fwd_kernel",)), ("flash_dq", ("flash_dq_kernel",)),
+                 ("flash_dkv", ("flash_dkv_kernel",)),
+                 ("tgmm", ("tgmm_kernel", "hopper_kernel<true", "tgmm_reduce_kernel")),
+                 ("gmm", ("gmm_kernel", "hopper_kernel<false")),
+                 ("ssm_fwd", ("ssm_fwd_kernel",)), ("ssm_bwd", ("ssm_bwd_kernel",)))
+
+
 def _kernel_of(key: str) -> str | None:
     """The port's kernel a profiler row belongs to, by its kernel name."""
-    for name in ("flash_fwd", "flash_dq", "flash_dkv", "tgmm", "gmm", "ssm_fwd", "ssm_bwd"):
-        if f"{name}_kernel" in key:
+    for name, marks in _KERNEL_NAMES:
+        if any(m in key for m in marks):
             return name
     return None
 
@@ -925,6 +965,16 @@ def moe_cases(rng, m_train, routed_train):
     skew[live] = rng.multinomial(16384 - 8192, np.full(len(live), 1.0 / len(live)))
     fwd_bwd = [("gate_up", "gmm", d, f), ("dx_gate_up", "gmm_t", f, d),
                ("dw_gate_up", "tgmm", d, f)]
+    # The bf16 kernels' edges at MAX_EXPERTS: empty experts at both ends,
+    # experts of 1, BM - 1, BM and BM + 1 rows (BM = 128), one long enough
+    # for tgmm to split its rows, 77 padding rows; K, N not tile multiples.
+    # Own generator: the other cases' draws stay as they were.
+    erng = np.random.default_rng(5)
+    edges = np.zeros(512, np.int64)
+    edges[1:5] = [1, 127, 128, 129]
+    edges[5:511] = erng.integers(0, 40, 506)
+    edges[erng.integers(5, 511, 60)] = 0
+    edges[300] = 2000
     return [
         ("i_decode", torch.bfloat16, decode, 64, [("gate_up", "gmm", d, f),
                                                   ("down", "gmm", f, d)]),
@@ -934,6 +984,9 @@ def moe_cases(rng, m_train, routed_train):
           ("dw_down", "tgmm", f, d)]),
         ("iii_fp32_empty_padding", torch.float32, fp32, 1000, fwd_bwd),
         ("iv_skewed", torch.bfloat16, skew, 16384, fwd_bwd),
+        ("v_edges", torch.bfloat16, edges, int(edges.sum()) + 77,
+         [("gmm", "gmm", 136, 200), ("gmm_t", "gmm_t", 136, 200),
+          ("tgmm", "tgmm", 136, 200)]),
     ]
 
 
@@ -976,8 +1029,32 @@ def grouped_library(kind, a, b, offs, E):
     return lambda: [torch.mm(a[lo:hi], w[e]) for e, lo, hi in ranges], "loop of torch.mm"
 
 
+def moe_schedule(kind, sizes, M, K, N, sms):
+    """The bf16 kernels' work at a case: gmm's expert-aligned tiles, or
+    tgmm's units and the workspace of its split experts, whose size the
+    wrapper reads from the library and which must hold the plan."""
+    from repro_torch.kernels.grouped_gemm import (
+        gmm_tile_schedule, kernel_block_m, kernel_block_n, tgmm_split_plan,
+        tgmm_workspace_bytes, tgmm_workspace_slots)
+
+    E = len(sizes)
+    bm = kernel_block_m(torch.bfloat16)
+    bn = kernel_block_n(torch.bfloat16)
+    if kind != "tgmm":
+        return {"tiles": len(gmm_tile_schedule(sizes, bm, -(-N // bn), m_rows=M))}
+    units_kn = -(-K // bm) * -(-N // bn)
+    _, pieces, used = tgmm_split_plan(sizes, units_kn, sms)
+    slots = tgmm_workspace_slots(units_kn, sms)
+    fields = dict(tiles=int(pieces.sum()) * units_kn,
+                  split_experts=int((pieces > 1).sum()), workspace_slots_used=used,
+                  workspace_bytes=tgmm_workspace_bytes(M, K, N, E, torch.bfloat16))
+    if used > slots or fields["workspace_bytes"] != slots * K * N * 4:
+        raise RuntimeError(f"tgmm's workspace does not hold its split plan: {fields}")
+    return fields
+
+
 def phase_kernels_moe(device, m_train, routed_train):
-    """gmm / tgmm against their plain versions at four cases; zero rows and
+    """gmm / tgmm against their plain versions at five cases; zero rows and
     empty experts must be exact zeros.  Then one MoE block at the
     training shape, forward and backward, with host syncs made errors."""
     from repro_torch.kernels.grouped_gemm import (
@@ -985,6 +1062,7 @@ def phase_kernels_moe(device, m_train, routed_train):
         tgmm_plain)
 
     set_tf32(False)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     rng = np.random.default_rng(2)
     results = {}
     for name, dtype, sizes, M, products in moe_cases(rng, m_train, routed_train):
@@ -1010,10 +1088,15 @@ def phase_kernels_moe(device, m_train, routed_train):
             torch.cuda.synchronize()
             err = float((got.float() - ref.float()).abs().max())
             scale = float(ref.float().abs().max())
+            extra = {}
             if kind == "tgmm":
                 zeros_exact = bool(not got[torch.as_tensor(empty, device=device)].any())
+                # the pieces of split experts are added in a fixed order
+                extra["bitwise_repeat"] = bool(torch.equal(got, run()))
             else:
                 zeros_exact = bool(not got[routed:].any())
+            if dtype == torch.bfloat16:
+                extra.update(moe_schedule(kind, sizes, M, K, N, sms))
             finite = bool(torch.isfinite(got.float()).all())
             del got, ref
             library, library_name = grouped_library(kind, x, b, offs, E)
@@ -1023,8 +1106,12 @@ def phase_kernels_moe(device, m_train, routed_train):
                        tol=MOE_TOL[dtype] * max(1.0, scale), zeros_exact=zeros_exact,
                        ms=median_ms(run), plain_ms=median_ms(plain),
                        library_ms=median_ms(library), library=library_name,
-                       bound_ms=bound_ms, bound_by=bound_by)
-            row["ok"] = finite and zeros_exact and err <= row["tol"]
+                       bound_ms=bound_ms, bound_by=bound_by, **extra)
+            row.update(tflops=2.0 * routed * K * N / row["ms"] / 1e9,
+                       bound_frac=bound_ms / row["ms"],
+                       vs_library=row["ms"] / row["library_ms"])
+            row["ok"] = (finite and zeros_exact and err <= row["tol"]
+                         and extra.get("bitwise_repeat", True))
             rows[label] = row
             del x, b
         case = dict(case=name, dtype=str(dtype).replace("torch.", ""), M=M, E=E,

@@ -99,8 +99,9 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # Attention backend for every attention site (encoders, LLM
     # backbone, cross attention, decode) -- see
-    # repro_torch.models.attention.ATTENTION_BACKENDS (the port runs
-    # "reference" and "flash"; chunked variants decode via "reference").
+    # repro_torch.models.attention.ATTENTION_BACKENDS (the port runs all
+    # five; "chunked" is the default, and chunked variants decode via
+    # "reference").
     #   "chunked_unrolled" = roofline mode: inner scans (attention KV
     #   blocks, xent chunks) unroll so cost_analysis counts every
     #   iteration (XLA prices a while-loop body once).

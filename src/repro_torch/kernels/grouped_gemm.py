@@ -17,6 +17,10 @@ int32, ascending from 0, ``offsets[E] <= M``); rows at or beyond
   dx of the forward product).  CUDA tensors only.
 * :func:`tgmm` -- its tgmm kernel, which replaces ``_tgmm_kernel``
   (:105): ``dw[e] = x[group e]^T @ dy[group e]``.
+* :func:`gmm_tile_schedule` / :func:`tgmm_split_plan` -- the bf16
+  kernels' schedules in plain Python: gmm's expert-aligned tiles and
+  tgmm's split of an expert's row walk, as the kernels build them on the
+  device from the offsets.
 * :class:`GroupedMatmul` -- the differentiable product: the kernels on
   CUDA tensors, the plain versions on CPU tensors; no gradient for the
   offsets.
@@ -34,11 +38,16 @@ __all__ = [
     "check_grouped_args",
     "count_live_group_tiles",
     "gmm",
+    "gmm_tile_schedule",
     "group_tile_skip_fraction",
     "grouped_matmul_plain",
     "kernel_block_m",
+    "kernel_block_n",
     "tgmm",
     "tgmm_plain",
+    "tgmm_split_plan",
+    "tgmm_workspace_bytes",
+    "tgmm_workspace_slots",
 ]
 
 
@@ -100,10 +109,13 @@ def _lib() -> ctypes.CDLL:
     lib = load("grouped_gemm.cu")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gmm.argtypes = [vp] * 4 + [i32] * 6 + [vp]
-    lib.tgmm.argtypes = [vp] * 4 + [i32] * 5 + [vp]
+    lib.tgmm.argtypes = [vp] * 5 + [i32] * 5 + [vp]
     lib.grouped_gemm_block_m.argtypes = [i32]
-    for fn in (lib.gmm, lib.tgmm, lib.grouped_gemm_block_m):
+    lib.grouped_gemm_block_n.argtypes = [i32]
+    lib.tgmm_workspace_bytes.argtypes = [i32] * 5
+    for fn in (lib.gmm, lib.tgmm, lib.grouped_gemm_block_m, lib.grouped_gemm_block_n):
         fn.restype = i32
+    lib.tgmm_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -111,6 +123,18 @@ def kernel_block_m(dtype: torch.dtype) -> int:
     """Rows of the gmm kernel's m-tile for ``dtype``, read from the built
     library (the tile of :func:`group_tile_skip_fraction`)."""
     return _lib().grouped_gemm_block_m(_DTYPE_CODES[dtype])
+
+
+def kernel_block_n(dtype: torch.dtype) -> int:
+    """Columns of the kernels' output tile for ``dtype``, read from the
+    built library."""
+    return _lib().grouped_gemm_block_n(_DTYPE_CODES[dtype])
+
+
+def tgmm_workspace_bytes(M: int, K: int, N: int, n_experts: int, dtype: torch.dtype) -> int:
+    """Bytes of the workspace the tgmm kernel takes for these shapes on the
+    current card, read from the built library (0 for fp32)."""
+    return _lib().tgmm_workspace_bytes(M, K, N, n_experts, _DTYPE_CODES[dtype])
 
 
 def _check_cuda(name, tensors, offsets):
@@ -168,8 +192,13 @@ def tgmm(x, dy, offsets, n_experts: int):
     if K % 8 or N % 8:
         raise ValueError(f"tgmm: K={K} and N={N} must be multiples of 8")
     dw = torch.empty((n_experts, K, N), dtype=x.dtype, device=x.device)
-    rc = _lib().tgmm(x.data_ptr(), dy.data_ptr(), offsets.data_ptr(), dw.data_ptr(), M, K,
-                     N, n_experts, _DTYPE_CODES[x.dtype], _stream(x))
+    # fp32 partials of the pieces of split experts (bf16 only), sized from
+    # the shapes alone: the split itself is decided on the device.
+    ws_bytes = tgmm_workspace_bytes(M, K, N, n_experts, x.dtype)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device) if ws_bytes else None
+    rc = _lib().tgmm(x.data_ptr(), dy.data_ptr(), offsets.data_ptr(), dw.data_ptr(),
+                     None if ws is None else ws.data_ptr(), M, K, N, n_experts,
+                     _DTYPE_CODES[x.dtype], _stream(x))
     if rc != 0:
         raise RuntimeError(f"tgmm launch failed with cudaError {rc}")
     tgmm.launches += 1
@@ -238,3 +267,53 @@ def group_tile_skip_fraction(group_sizes, block_m: int) -> float:
     n_m = -(-total_rows // block_m)  # ceil
     total = n_m * len(sizes)
     return 1.0 - count_live_group_tiles(sizes, block_m) / total if total else 0.0
+
+
+def gmm_tile_schedule(group_sizes, block_m: int, n_tiles: int = 1, m_rows=None):
+    """The bf16 gmm kernel's expert-aligned tiles in the order its
+    persistent blocks walk them: each expert's m-tiles in expert order,
+    each starting at the expert's first row plus a multiple of
+    ``block_m`` (no tile straddles two experts), n-tiles fastest; then the
+    zero tiles of the padding rows ``[offsets[E], m_rows)``, reported with
+    expert E.  Tile t is found as the kernel finds it: the last expert
+    whose prefix count of tiles is <= t.  Returns ``[(expert, row_start,
+    n_tile)]``; its length is the kernel's tile count."""
+    sizes = np.asarray(group_sizes, np.int64)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    E, routed = len(sizes), int(offs[-1])
+    m_rows = routed if m_rows is None else int(m_rows)
+    prefix = np.concatenate([[0], np.cumsum(-(-sizes // block_m))]) * n_tiles
+    live = int(prefix[-1])
+    total = live + -(-(m_rows - routed) // block_m) * n_tiles
+    tiles = []
+    for t in range(total):
+        if t < live:
+            e = int(np.searchsorted(prefix[:E], t, side="right")) - 1
+            j, nt = divmod(t - int(prefix[e]), n_tiles)
+        else:
+            e = E
+            j, nt = divmod(t - live, n_tiles)
+        tiles.append((e, int(offs[e]) + j * block_m, nt))
+    return tiles
+
+
+def tgmm_split_plan(group_sizes, units_kn: int, grid: int, chunk: int = 64):
+    """How the bf16 tgmm kernel splits each expert's walk over its rows:
+    ``T = routed * units_kn / (4 * grid)`` rounded up to whole ``chunk``s
+    (``units_kn`` output tiles an expert, ``grid`` the card's SM count);
+    an expert of n rows walks ``ceil(n / T)`` pieces (1 when empty), and
+    each piece of a split expert takes a workspace slot.  Returns
+    ``(T, pieces per expert, slots used)``."""
+    sizes = np.asarray(group_sizes, np.int64)
+    routed = int(sizes.sum())
+    t = -(-routed * units_kn // (4 * grid))
+    t = max(chunk, -(-t // chunk) * chunk)
+    pieces = np.where(sizes > 0, -(-sizes // t), 1)
+    return t, pieces, int(pieces[pieces > 1].sum())
+
+
+def tgmm_workspace_slots(units_kn: int, grid: int) -> int:
+    """Workspace slots (each an fp32 [K, N]) the tgmm wrapper allocates:
+    a split expert has n > T rows and so fewer than 2n / T pieces, and all
+    of them fewer than ``2 * routed / T <= 8 * grid / units_kn``."""
+    return -(-8 * grid // units_kn)

@@ -10,6 +10,10 @@ restart at 0 per example.  :func:`attention` selects a ``backend``:
                    block from the saved row statistics instead of keeping
                    the [Tq, Tkv] probabilities (``_chunked`` and
                    ``_flash_bwd_blocks`` of the JAX package);
+  * ``chunked_unrolled``  the same computation as ``chunked``: the JAX
+                   package unrolls its KV scan only so that XLA's
+                   ``cost_analysis`` counts every block, which eager
+                   PyTorch has no need of;
   * ``flash``      the segment flash-attention kernels behind the
                    model-level ``[B, T, H, D]`` calling convention
                    (``kernels.ops.flash_attention_op``: the CUDA forward
@@ -35,7 +39,8 @@ from repro_torch.utils import round_up
 
 __all__ = ["ATTENTION_BACKENDS", "NEG_INF", "attention", "make_segment_mask"]
 
-ATTENTION_BACKENDS = ("reference", "chunked", "flash", "flash_interpret")
+ATTENTION_BACKENDS = ("reference", "chunked", "chunked_unrolled", "flash",
+                      "flash_interpret")
 _INT32_MAX = 2**31 - 1
 
 
@@ -228,7 +233,7 @@ def attention(q, k, v, *, q_seg, kv_seg, q_pos, kv_pos, causal: bool = True,
     if backend in ("flash", "flash_interpret"):
         return _flash(q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal=causal,
                       window=window, block_q=block_q, block_kv=block_kv)
-    if backend == "chunked":
+    if backend in ("chunked", "chunked_unrolled"):
         ints = (t.to(torch.int32) for t in (q_seg, kv_seg, q_pos, kv_pos))
         return _Chunked.apply(q, k, v, *ints, causal, window, scale, block_q, block_kv)
     raise ValueError(f"unknown attention backend {backend!r}; the port runs "

@@ -53,7 +53,8 @@ def test_falcon_mamba_7b_widths():
 
 
 @pytest.mark.parametrize("impl,decode", [("flash", "flash"), ("reference", "reference"),
-                                         ("chunked", "reference")])
+                                         ("chunked", "reference"),
+                                         ("chunked_unrolled", "reference")])
 def test_decode_backend_rule(impl, decode):
     assert dataclasses.replace(get_config("mllm_10b"), attention_impl=impl).decode_backend \
         == decode
@@ -66,6 +67,15 @@ def test_with_attention_backend_validates_against_the_port():
         get_config("mllm_10b", attention_backend="windowed_flash")
     with pytest.raises(KeyError):
         get_config("qwen3_8b")
+
+
+@pytest.mark.parametrize("arch", ARCHITECTURES)
+def test_chunked_unrolled_accepted_as_in_jax(arch):
+    port = get_config(arch, attention_backend="chunked_unrolled")
+    ref = jax_get_config(arch, attention_backend="chunked_unrolled")
+    assert port.attention_impl == ref.attention_impl == "chunked_unrolled"
+    assert port.attention_backend == ref.attention_backend
+    assert port.decode_backend == ref.decode_backend == "reference"
 
 
 def test_serving_cost_model_equal():

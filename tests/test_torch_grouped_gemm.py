@@ -24,8 +24,11 @@ from repro_torch.kernels.grouped_gemm import (
     GroupedMatmul,
     count_live_group_tiles,
     gmm,
+    gmm_tile_schedule,
     group_tile_skip_fraction,
     tgmm,
+    tgmm_split_plan,
+    tgmm_workspace_slots,
 )
 from repro_torch.kernels.ops import grouped_matmul_op
 
@@ -154,3 +157,70 @@ def test_tile_accounting_matches_jax(block_m):
         sizes[rng.random(sizes.size) < 0.2] = 0
         assert count_live_group_tiles(sizes, block_m) == jax_count_live(sizes, block_m)
         assert group_tile_skip_fraction(sizes, block_m) == jax_skip_fraction(sizes, block_m)
+
+
+def _brute_force_tiles(sizes, block_m, n_tiles, m_rows):
+    """Every (expert, tile start, n-tile) that some row needs, row by row:
+    a row of expert e lies in the tile starting at e's first row plus a
+    whole number of ``block_m``; padding rows count from offsets[E]."""
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    E = len(sizes)
+    tiles = set()
+    for m in range(m_rows):
+        e = int(np.searchsorted(offs[1:], m, side="right")) if m < offs[-1] else E
+        start = offs[e] + (m - offs[e]) // block_m * block_m
+        tiles.update((e, int(start), nt) for nt in range(n_tiles))
+    return sorted(tiles)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_gmm_tile_schedule_matches_brute_force(seed):
+    rng = np.random.default_rng(seed)
+    block_m = [4, 16, 128, 128][seed]
+    for _ in range(6):
+        sizes = rng.integers(0, 3 * block_m, size=int(rng.integers(1, 24)))
+        sizes[rng.random(sizes.size) < 0.3] = 0
+        sizes[0] = sizes[-1] = 0  # empty experts at both ends
+        m_rows = int(sizes.sum()) + int(rng.integers(0, 2 * block_m))
+        n_tiles = int(rng.integers(1, 4))
+        got = gmm_tile_schedule(sizes, block_m, n_tiles, m_rows=m_rows)
+        assert got == _brute_force_tiles(sizes, block_m, n_tiles, m_rows)
+        offs = np.concatenate([[0], np.cumsum(sizes)])
+        for e, start, _ in got:  # no tile straddles a seam
+            hi = offs[e + 1] if e < len(sizes) else m_rows
+            assert offs[e] <= start < hi
+    assert gmm_tile_schedule([0, 0], 128, 2, m_rows=0) == []
+
+
+def test_gmm_tile_schedule_edges():
+    """Experts of 1, BM - 1, BM and BM + 1 rows and a padding tail."""
+    sizes = [0, 1, 127, 128, 129, 0]
+    got = gmm_tile_schedule(sizes, 128, 1, m_rows=385 + 77)
+    assert got == [(1, 0, 0), (2, 1, 0), (3, 128, 0), (4, 256, 0), (4, 384, 0),
+                   (6, 385, 0)]
+    # two n-tiles: n fastest within each m-tile
+    got = gmm_tile_schedule([300, 0, 5], 128, 2, m_rows=305)
+    assert got == [(0, 0, 0), (0, 0, 1), (0, 128, 0), (0, 128, 1), (0, 256, 0),
+                   (0, 256, 1), (2, 300, 0), (2, 300, 1)]
+
+
+@pytest.mark.parametrize("units_kn", [1, 4, 48, 96])
+def test_tgmm_split_plan_fits_its_workspace(units_kn):
+    """The split never needs more workspace slots than the wrapper sizes
+    from the shapes, for balanced, skewed and tiny routings; every piece
+    walks at least one 64-row chunk."""
+    rng = np.random.default_rng(units_kn)
+    grid = 132
+    layouts = [rng.multinomial(69_072, np.full(40, 1 / 40)),
+               np.array([8192] + [264] * 31 + [0] * 8),
+               np.array([0, 1, 127, 128, 129] + [0] * 507),
+               np.array([1]), np.zeros(8, np.int64)]
+    layouts += [rng.integers(0, 5000, size=int(rng.integers(1, 512))) for _ in range(20)]
+    for sizes in layouts:
+        t, pieces, slots = tgmm_split_plan(sizes, units_kn, grid)
+        assert t >= 64 and t % 64 == 0
+        assert slots <= tgmm_workspace_slots(units_kn, grid)
+        chunks = -(-np.asarray(sizes) // 64)
+        assert np.all((pieces <= np.maximum(chunks, 1)) & (pieces >= 1))
+        big = np.asarray(sizes) > t
+        assert np.array_equal(pieces > 1, big)

@@ -102,7 +102,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("backend", ["reference", "chunked", "flash"])
+@pytest.mark.parametrize("backend", ["reference", "chunked", "chunked_unrolled", "flash"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_attention_backends_match_jax(case, backend):
     c = CASES[case]
