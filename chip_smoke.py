@@ -10,7 +10,7 @@ Phases, each printed as one JSON line and each raising on failure:
            checkout's sources, one nvcc per source, all started together;
            print nvcc's time and ptxas' register, shared-memory and spill
            lines; require HGMMA (wgmma) and UTMALDG (TMA loads) in the
-           SASS of every bf16 grouped-GEMM kernel.
+           SASS of every bf16 grouped-GEMM and flash-backward kernel.
   kernels  hold the forward kernel against its plain PyTorch version on
            the card at four cases (the mllm_10b decode shape; a packed
            bf16 stream of 4096 tokens; fp32 with a window and GQA;
@@ -18,10 +18,13 @@ Phases, each printed as one JSON line and each raising on failure:
            torch's scaled_dot_product_attention (a yardstick the port
            never calls) with CUDA events.
   kernels_bwd  the same for the dq and dk/dv kernels against the plain
-           backward at four cases (a packed bf16 train stream; the padded,
+           backward at five cases (a packed bf16 train stream; the padded,
            bidirectional audio encoder at head_dim 64; fp32 with a window
-           and GQA; the backbone at the first training step's shapes),
-           with the backward of scaled_dot_product_attention as yardstick.
+           and GQA; the backbone at the first training step's shapes; bf16
+           at head_dim 64 with a window and T = 1000, no multiple of the
+           tiles), with the backward of scaled_dot_product_attention as
+           yardstick; each case runs twice and must give bitwise-equal dq,
+           dk and dv.
   serve    serve requests through ``Engine`` on the full-width mllm_10b
            backbone (random bf16 weights from a seed) with
            attention_impl="flash", counting kernel launches.
@@ -238,14 +241,21 @@ def phase_build():
                  if "registers" in ln or "spill" in ln or "smem" in ln]
         emit("build", source=source, library=lib.name, built_now=built, nvcc_s=seconds,
              ptxas=lines)
-        if source == "grouped_gemm.cu":
-            grouped_sass(lib)
+        if source in SASS_KERNELS:
+            check_sass(source, lib)
     emit("build", wall_s=time.perf_counter() - t0)
 
 
-def grouped_sass(lib):
-    """The bf16 grouped GEMMs must multiply with wgmma and load by TMA: count
-    HGMMA and UTMALDG in each kernel of the library's SASS (cuobjdump)."""
+# The bf16 kernels of each source that must multiply with wgmma and load
+# by TMA, by the marks in their SASS names.
+SASS_KERNELS = {"grouped_gemm.cu": ("hopper_kernel",),
+                "flash_bwd.cu": ("flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")}
+
+
+def check_sass(source, lib):
+    """Count HGMMA and UTMALDG in each kernel of the library's SASS
+    (cuobjdump); every kernel named by ``SASS_KERNELS[source]`` must
+    have both, and every mark must name at least one kernel."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
@@ -258,11 +268,13 @@ def grouped_sass(lib):
         elif name is not None:
             for op in ("HGMMA", "UTMALDG"):
                 counts[name][op] += f" {op}." in line or f" {op} " in line
-    hopper = {k: v for k, v in counts.items() if "hopper_kernel" in k}
+    marks = SASS_KERNELS[source]
+    hopper = {k: v for k, v in counts.items() if any(m in k for m in marks)}
     excerpt = [ln.strip() for ln in sass.splitlines() if "HGMMA" in ln or "UTMALDG" in ln][:4]
-    emit("build", source="grouped_gemm.cu", sass_counts=hopper, sass_excerpt=excerpt)
-    if not hopper or not all(v["HGMMA"] and v["UTMALDG"] for v in hopper.values()):
-        raise RuntimeError(f"the bf16 grouped GEMMs lack wgmma or TMA loads: {counts}")
+    emit("build", source=source, sass_counts=hopper, sass_excerpt=excerpt)
+    if (not all(any(m in k for k in hopper) for m in marks)
+            or not all(v["HGMMA"] and v["UTMALDG"] for v in hopper.values())):
+        raise RuntimeError(f"the bf16 kernels of {source} lack wgmma or TMA loads: {counts}")
 
 
 def phase_kernels(device):
@@ -342,6 +354,17 @@ def bwd_bound(kind, q, k, mask, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def bwd_walk(count, t_count, H, Hkv):
+    """Stages of the backward kernels' walks: a dq block walks its list
+    for one head, a dk/dv block its list for each of the H / Hkv heads of
+    its group.  The longest block's stages beside the mean per SM."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = H // Hkv
+    return {"dq_longest": int(count.max()), "dq_per_sm": float(count.sum()) * H / sms,
+            "dkv_longest": int(t_count.max()) * g,
+            "dkv_per_sm": float(t_count.sum()) * Hkv * g / sms}
+
+
 def padded_layout(rng, B, T, row, lo):
     """The audio encoder's padded stream: examples of lo..row-8 tokens,
     each in a row of ``row`` slots (the port's ``pack_padded_stream``)."""
@@ -358,6 +381,7 @@ def bwd_cases(rng, train_batch):
     seg_f, pos_f = padded_layout(rng, 2, 5 * 1504, 1504, 200)
     seg_g, pos_g = packed_layout(rng, 2, 512, 16, 160)
     seg_h, pos_h = train_batch["llm_seg"], train_batch["llm_pos"]
+    seg_i, pos_i = packed_layout(rng, 2, 1000, 24, 400)
     return [
         ("e_packed_train_stream", 1, 28, 4, 4096, 128, torch.bfloat16, True, None,
          seg_e, pos_e),
@@ -366,6 +390,8 @@ def bwd_cases(rng, train_batch):
         ("g_fp32_window_gqa", 2, 8, 2, 512, 64, torch.float32, True, 48, seg_g, pos_g),
         ("h_train_step_backbone", seg_h.shape[0], 28, 4, seg_h.shape[1], 128,
          torch.bfloat16, True, None, seg_h, pos_h),
+        ("i_bf16_window_ragged", 2, 12, 4, 1000, 64, torch.bfloat16, True, 96, seg_i,
+         pos_i),
     ]
 
 
@@ -390,9 +416,8 @@ def sdpa_backward_ms(q, k, v, do, mask):
 
 def phase_kernels_bwd(device, train_batch):
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_dkv,
-        flash_attention_dq, flash_attention_fwd, kernel_blocks, live_tile_lists,
-        make_segment_mask, transpose_tile_lists)
+        bwd_blocks, bwd_tile_lists, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_dkv, flash_attention_dq, flash_attention_fwd, make_segment_mask)
 
     rng = np.random.default_rng(1)
     results = {}
@@ -409,17 +434,20 @@ def phase_kernels_bwd(device, train_batch):
         out, lse = flash_attention_fwd(q, k, v, *ints, **kw)
         got = flash_attention_bwd(q, k, v, do, out, lse, *ints, **kw)
         ref = flash_attention_bwd_plain(q, k, v, do, out, lse, *ints, **kw)
+        # a second launch must give the same bits (no atomics)
+        again = flash_attention_bwd(q, k, v, do, out, lse, *ints, **kw)
         torch.cuda.synchronize()
         err = {n: float((a.float() - b.float()).abs().max())
                for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
         ref_max = {n: float(b.float().abs().max()) for n, b in zip(("dq", "dk", "dv"), ref)}
         finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         atol = TOL[dtype][0]
-        del got, ref
+        del got, ref, again
 
-        bq, bk = kernel_blocks()
-        count, idx = live_tile_lists(*ints, block_q=bq, block_kv=bk, **kw)
-        t_count, t_idx = transpose_tile_lists(idx)
+        blocks = bwd_blocks(dtype)
+        count, idx, t_count, t_idx = bwd_tile_lists(
+            *ints, dq_blocks=blocks["dq"], dkv_blocks=blocks["dkv"], **kw)
         delta = (do.float() * out.float()).sum(-1)
         mask = make_segment_mask(*ints, **kw)
         dq_bound, dq_by = bwd_bound("dq", q, k, mask, dtype)
@@ -429,6 +457,7 @@ def phase_kernels_bwd(device, train_batch):
             case=name, q_shape=[B, H, T, D], kv_shape=[B, Hkv, T, D],
             dtype=str(dtype).replace("torch.", ""), causal=causal, window=window,
             do_scale=DO_SCALE, max_abs_err=err, ref_max_abs=ref_max, atol=atol,
+            bitwise_repeat=bitwise, blocks=blocks,
             # bare launches on precomputed lists and delta
             dq_ms=timed(lambda: flash_attention_dq(q, k, v, do, lse, delta, *ints, count,
                                                    idx, **kw)),
@@ -442,8 +471,11 @@ def phase_kernels_bwd(device, train_batch):
             dq_bound_ms=dq_bound, dq_bound_by=dq_by, dkv_bound_ms=dkv_bound,
             dkv_bound_by=dkv_by,
             tile_skip_fraction=1.0 - float(count.sum()) / idx.numel(),
+            # stages = (live tile, query head) pairs a block walks: the
+            # longest list against the launch's mean per SM
+            walk=bwd_walk(count, t_count, H, Hkv),
         )
-        row["ok"] = finite and max(err.values()) <= atol
+        row["ok"] = finite and max(err.values()) <= atol and bitwise
         emit("kernels_bwd", **row)
         del mask
         if not row["ok"]:
@@ -819,8 +851,9 @@ def phase_train(cfg, batches, caps, redraws, device, phase="train"):
 # The port's kernels by the names the profiler shows (tgmm before gmm: the
 # fp32 "tgmm_kernel" contains "gmm_kernel").  The bf16 grouped GEMMs are one
 # template, hopper_kernel<TGMM, ...>, and tgmm's second pass adds its pieces.
-_KERNEL_NAMES = (("flash_fwd", ("flash_fwd_kernel",)), ("flash_dq", ("flash_dq_kernel",)),
-                 ("flash_dkv", ("flash_dkv_kernel",)),
+_KERNEL_NAMES = (("flash_fwd", ("flash_fwd_kernel",)),
+                 ("flash_dq", ("flash_dq_kernel", "flash_dq_wgmma_kernel")),
+                 ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_wgmma_kernel")),
                  ("tgmm", ("tgmm_kernel", "hopper_kernel<true", "tgmm_reduce_kernel")),
                  ("gmm", ("gmm_kernel", "hopper_kernel<false")),
                  ("ssm_fwd", ("ssm_fwd_kernel",)), ("ssm_bwd", ("ssm_bwd_kernel",)))

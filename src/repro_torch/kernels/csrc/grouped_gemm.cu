@@ -79,6 +79,8 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;      // fp32 kernels
@@ -332,6 +334,7 @@ void launch_tgmm_fp32(const void* x, const void* dy, const int* offsets, void* d
 // =====================================================================
 namespace hop {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int BM = 128, BN = 256, BK = 64;  // output tile; depth of a stage
@@ -373,82 +376,6 @@ inline int workspace_slots(int units_kn, int grid) {
 // tgmm's output tiles an expert: K-tiles of BM times N-tiles of BN.
 __host__ __device__ inline int tgmm_units_kn(int K, int N) {
   return ((K + BM - 1) / BM) * ((N + BN - 1) / BN);
-}
-
-// ---- PTX: shared memory, mbarriers, TMA, wgmma --------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-// Spin until the barrier's phase differs from `parity`.  A wait that
-// outlasts ~2^34 cycles (seconds) can only be a broken pipeline: trap, so
-// that the launch fails with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                       int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                       int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving reads or writes of the accumulators across
-// the asynchronous products.
-template <int N> __device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands:
-// rows of 128 bytes, 8-row groups SBO = 1024 bytes apart (LBO unused).
-// MN-major: 64-element atoms along M or N LBO bytes apart, 8-row groups
-// along K SBO = 1024 bytes apart.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
 // One m64n256k16 product, both operands read from shared memory through
@@ -607,41 +534,6 @@ __device__ __forceinline__ Work tgmm_work(const int* off, const int* pre, const 
   w.rows_end = lo + n;
   w.slot = ns > 1 ? spre[w.e] + piece : -1;
   return w;
-}
-
-// Pack two floats into a bf16x2 word (lower address first).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Across the 4 lanes of a quad, lane p holds v[i] = words i of its own
-// columns; afterwards lane q holds word q of lanes 0..3 in order: a 4 x 4
-// transpose in two butterfly rounds.
-__device__ __forceinline__ void quad_transpose(uint32_t& v0, uint32_t& v1, uint32_t& v2,
-                                               uint32_t& v3, int q) {
-  const bool odd = q & 1, high = q & 2;
-  uint32_t s0 = odd ? v0 : v1, s1 = odd ? v2 : v3;
-  s0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-  s1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-  if (odd) {
-    v0 = s0;
-    v2 = s1;
-  } else {
-    v1 = s0;
-    v3 = s1;
-  }
-  s0 = high ? v0 : v2;
-  s1 = high ? v1 : v3;
-  s0 = __shfl_xor_sync(0xffffffffu, s0, 2);
-  s1 = __shfl_xor_sync(0xffffffffu, s1, 2);
-  if (high) {
-    v0 = s0;
-    v1 = s1;
-  } else {
-    v2 = s0;
-    v3 = s1;
-  }
 }
 
 // Write a warpgroup's 64 x BN accumulator tile.  Thread (warp, lane) holds
@@ -823,7 +715,7 @@ hopper_kernel(const __grid_constant__ CUtensorMap map_a,
         }
       }
       if (active) wgmma_wait<0>();
-      fence_acc(acc);
+      fence_regs(acc);
       if (prev >= 0 && tid == 0) mbar_arrive(&s.empty[prev]);
       if (!active) continue;
       if (TGMM) {
@@ -875,43 +767,6 @@ tgmm_reduce_kernel(const int* __restrict__ offsets, const float* __restrict__ ws
 }
 
 // ---- host: tensor maps and launches -----------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime, so the
-// library needs no link against libcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                            cudaEnableDefault, &q);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                   cudaEnableDefault, &q);
-#endif
-    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A bf16 tensor map of `rank` dims (innermost first), strides in bytes for
-// dims 1.., the box in elements, 128-byte swizzle, zero fill past the edges.
-bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-              const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled fn = encoder();
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-             CUDA_SUCCESS;
-}
 
 template <bool TGMM, int TB>
 cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb, const int* offsets, bf16* out,

@@ -25,8 +25,10 @@ package's interval rules, in torch.  The kernel wrapper evaluates them at
 the kernel's own tile sizes and compacts each (stream, Q tile) row of the
 mask into a list of live KV-tile indices plus a count, with device ops
 only (no host sync), so the kernel walks live tiles and nothing else.
-The forward's lists serve the dq kernel as they are; the dkv kernel walks
-their transpose, one list of live Q tiles per (stream, KV tile).
+Each backward kernel has tiles of its own, per dtype (:func:`bwd_blocks`,
+read from the built library): :func:`bwd_tile_lists` makes the dq
+kernel's lists at dq's tiles and the dkv kernel's at dkv's, transposed to
+one list of live Q tiles per (stream, KV tile).
 """
 from __future__ import annotations
 
@@ -42,6 +44,8 @@ from repro_torch.utils import round_up
 __all__ = [
     "FlashAttention",
     "NEG_INF",
+    "bwd_blocks",
+    "bwd_tile_lists",
     "count_live_tiles",
     "flash_attention_bwd",
     "flash_attention_bwd_plain",
@@ -342,12 +346,34 @@ def _bwd_lib() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_bwd_dq.argtypes = [vp] * 13 + [i32] * 10 + [ctypes.c_float, i32, vp]
     lib.flash_bwd_dkv.argtypes = [vp] * 14 + [i32] * 10 + [ctypes.c_float, i32, vp]
+    lib.flash_bwd_block_q.argtypes = lib.flash_bwd_block_kv.argtypes = [i32, i32]
     for fn in (lib.flash_bwd_dq, lib.flash_bwd_dkv, lib.flash_bwd_block_q,
                lib.flash_bwd_block_kv):
         fn.restype = i32
-    if (lib.flash_bwd_block_q(), lib.flash_bwd_block_kv()) != kernel_blocks():
-        raise RuntimeError("flash_bwd.cu and flash_fwd.cu disagree on tile sizes")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_blocks(dtype: torch.dtype) -> dict[str, tuple[int, int]]:
+    """The backward kernels' own (query, KV) tile sizes for ``dtype``, read
+    from the built library: ``{"dq": (bq, bk), "dkv": (bq, bk)}``."""
+    lib, code = _bwd_lib(), _DTYPE_CODES[dtype]
+    return {name: (lib.flash_bwd_block_q(i, code), lib.flash_bwd_block_kv(i, code))
+            for i, name in enumerate(("dq", "dkv"))}
+
+
+def bwd_tile_lists(q_seg, kv_seg, q_pos, kv_pos, *, dq_blocks, dkv_blocks, causal,
+                   window):
+    """The lists the backward kernels walk: ``(count, idx)`` of
+    :func:`live_tile_lists` at the dq kernel's tiles ``dq_blocks``, and
+    ``(t_count, t_idx)``, the :func:`transpose_tile_lists` of the lists at
+    the dkv kernel's tiles ``dkv_blocks``.  Device ops only."""
+    kw = dict(causal=causal, window=window)
+    count, idx = live_tile_lists(q_seg, kv_seg, q_pos, kv_pos, block_q=dq_blocks[0],
+                                 block_kv=dq_blocks[1], **kw)
+    _, idx_kv = live_tile_lists(q_seg, kv_seg, q_pos, kv_pos, block_q=dkv_blocks[0],
+                                block_kv=dkv_blocks[1], **kw)
+    return count, idx, *transpose_tile_lists(idx_kv)
 
 
 def _bwd_args(q, k, v, do, lse, delta, ints):
@@ -364,9 +390,10 @@ def _bwd_dims(q, k, idx, causal, window):
 
 def flash_attention_dq(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos, count,
                        idx, *, causal, window):
-    """Launch the dq kernel on checked inputs, walking the forward's
-    per-(stream, Q tile) lists ``count``/``idx``; returns dq in q's
-    dtype.  Counts each launch in ``flash_attention_dq.launches``."""
+    """Launch the dq kernel on checked inputs, walking the per-(stream,
+    Q tile) lists ``count``/``idx`` made at the dq kernel's tiles
+    (:func:`bwd_tile_lists`); returns dq in q's dtype.  Counts each
+    launch in ``flash_attention_dq.launches``."""
     dq = torch.empty_like(q)
     rc = _bwd_lib().flash_bwd_dq(
         *_bwd_args(q, k, v, do, lse, delta, (q_seg, kv_seg, q_pos, kv_pos)),
@@ -380,10 +407,11 @@ def flash_attention_dq(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos, co
 
 def flash_attention_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos,
                         t_count, t_idx, *, causal, window):
-    """Launch the dkv kernel on checked inputs, walking the transposed
-    per-(stream, KV tile) lists of :func:`transpose_tile_lists`; returns
-    (dk, dv) in k's dtype, each KV head's GQA group summed in the block.
-    Counts each launch in ``flash_attention_dkv.launches``."""
+    """Launch the dkv kernel on checked inputs, walking the per-(stream,
+    KV tile) lists ``t_count``/``t_idx`` made at the dkv kernel's tiles
+    (:func:`bwd_tile_lists`); returns (dk, dv) in k's dtype, each KV
+    head's GQA group summed in the block.  Counts each launch in
+    ``flash_attention_dkv.launches``."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = _bwd_lib().flash_bwd_dkv(
         *_bwd_args(q, k, v, do, lse, delta, (q_seg, kv_seg, q_pos, kv_pos)),
@@ -400,18 +428,19 @@ flash_attention_dkv.launches = 0
 
 
 def flash_attention_bwd(q, k, v, do, out, lse, q_seg, kv_seg, q_pos, kv_pos, *,
-                        causal: bool = True, window: int | None = None, lists=None):
+                        causal: bool = True, window: int | None = None):
     """The CUDA backward.  Same arguments and results as
-    :func:`flash_attention_bwd_plain`; ``lists`` are the forward's
-    (count, idx) live-tile lists, made here when not given.  ``delta`` is
-    computed in fp32 outside the kernels, as the JAX package does."""
+    :func:`flash_attention_bwd_plain`.  Builds each kernel's live-tile
+    lists at its own tiles (:func:`bwd_blocks`) from seg/pos; ``delta``
+    is computed in fp32 outside the kernels, as the JAX package does."""
     ints = (q_seg, kv_seg, q_pos, kv_pos)
     do = do.contiguous()
     _check("flash_attention_bwd", q, k, v, ints, more=(do, out))
-    count, idx = lists if lists is not None else _tile_lists(*ints, causal=causal,
-                                                             window=window)
+    blocks = bwd_blocks(q.dtype)
+    count, idx, t_count, t_idx = bwd_tile_lists(
+        *ints, dq_blocks=blocks["dq"], dkv_blocks=blocks["dkv"], causal=causal,
+        window=window)
     delta = (do.float() * out.float()).sum(-1)
-    t_count, t_idx = transpose_tile_lists(idx)
     kw = dict(causal=causal, window=window)
     dq = flash_attention_dq(q, k, v, do, lse, delta, *ints, count, idx, **kw)
     dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, *ints, t_count, t_idx, **kw)
@@ -424,36 +453,27 @@ def flash_attention_bwd(q, k, v, do, out, lse, q_seg, kv_seg, q_pos, kv_pos, *,
 class FlashAttention(torch.autograd.Function):
     """Segment flash attention with its backward: B1 forward, then the dq
     and dkv kernels on CUDA tensors; the plain versions on CPU tensors.
-    Saves out and lse (and, on CUDA, the live-tile lists) for the
-    backward; seg/pos get no gradient."""
+    Saves out and lse for the backward, which builds its own live-tile
+    lists from seg/pos; seg/pos get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal, window):
         ints = (q_seg, kv_seg, q_pos, kv_pos)
-        lists = ()
         if q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, *ints, causal=causal,
                                              window=window)
         elif q.device.type == "cuda":
-            _check("flash_attention_fwd", q, k, v, ints)
-            lists = _tile_lists(*ints, causal=causal, window=window)
-            out, lse = _launch(q, k, v, *ints, *lists, causal=causal, window=window)
+            out, lse = flash_attention_fwd(q, k, v, *ints, causal=causal, window=window)
         else:
             raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
-        ctx.save_for_backward(q, k, v, *ints, out, lse, *lists)
+        ctx.save_for_backward(q, k, v, *ints, out, lse)
         ctx.causal, ctx.window = causal, window
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        saved = ctx.saved_tensors  # unpack once (checkpoint recomputes on unpack)
-        q, k, v, *ints, out, lse = saved[:9]
-        lists = saved[9:]  # () on the CPU
-        kw = dict(causal=ctx.causal, window=ctx.window)
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, do, out, lse, *ints, **kw)
-        else:
-            dq, dk, dv = flash_attention_bwd(q, k, v, do, out, lse, *ints, lists=lists,
-                                             **kw)
+        q, k, v, *ints, out, lse = ctx.saved_tensors  # unpack once (checkpoint recomputes)
+        bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, do, out, lse, *ints, causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None, None, None, None, None
