@@ -10,13 +10,19 @@ Phases, each printed as one JSON line and each raising on failure:
            checkout's sources, one nvcc per source, all started together;
            print nvcc's time and ptxas' register, shared-memory and spill
            lines; require HGMMA (wgmma) and UTMALDG (TMA loads) in the
-           SASS of every bf16 grouped-GEMM and flash-backward kernel.
+           SASS of every bf16 grouped-GEMM, flash-forward and
+           flash-backward kernel.
   kernels  hold the forward kernel against its plain PyTorch version on
-           the card at four cases (the mllm_10b decode shape; a packed
-           bf16 stream of 4096 tokens; fp32 with a window and GQA;
-           causal=False) and time it, its wrapper, the plain version and
-           torch's scaled_dot_product_attention (a yardstick the port
-           never calls) with CUDA events.
+           the card at seven cases (the mllm_10b and granite decode
+           shapes, which take the packed GQA mode; a packed bf16 stream of
+           4096 tokens; fp32 with a window and GQA; causal=False; the
+           padded, bidirectional audio encoder at head_dim 64; the
+           backbone at the first training step's shapes) and time it, its
+           wrapper, the plain version and torch's
+           scaled_dot_product_attention (a yardstick the port never calls)
+           with CUDA events; each case prints the mode and tiles it
+           launched, and its wrapper runs again with host syncs made
+           errors and must give bitwise-equal out and lse.
   kernels_bwd  the same for the dq and dk/dv kernels against the plain
            backward at five cases (a packed bf16 train stream; the padded,
            bidirectional audio encoder at head_dim 64; fp32 with a window
@@ -181,20 +187,32 @@ def decode_layout(rng, B, S, ctx_lo, ctx_hi):
     return q_seg, kv_seg, q_pos, kv_pos
 
 
-def kernel_cases(rng):
+def kernel_cases(rng, train_batch):
     """(name, B, H, Hkv, Tq, Tkv, D, dtype, causal, window, seg/pos)."""
     seg_b, pos_b = packed_layout(rng, 1, 4096, 64, 1024)
     seg_c, pos_c = packed_layout(rng, 2, 256, 16, 128)
     seg_d, pos_d = packed_layout(rng, 2, 512, 32, 256)
-    return [
-        ("a_decode", 8, 28, 4, 8, SERVE_ENGINE["max_model_len"], 128, torch.bfloat16,
-         True, None, decode_layout(rng, 8, SERVE_ENGINE["max_model_len"], 64, 320)),
+    S = SERVE_ENGINE["max_model_len"]
+    cases = [
+        ("a_decode", 8, 28, 4, 8, S, 128, torch.bfloat16, True, None,
+         decode_layout(rng, 8, S, 64, 320)),
         ("b_packed_stream", 1, 28, 4, 4096, 4096, 128, torch.bfloat16, True, None,
          (seg_b, seg_b, pos_b, pos_b)),
         ("c_fp32_window_gqa", 2, 8, 2, 256, 256, 64, torch.float32, True, 48,
          (seg_c, seg_c, pos_c, pos_c)),
         ("d_bidirectional", 2, 8, 2, 512, 512, 128, torch.bfloat16, False, None,
          (seg_d, seg_d, pos_d, pos_d)),
+    ]
+    # drawn after the cases above, so that their layouts do not depend on these
+    seg_f, pos_f = padded_layout(rng, 2, 5 * 1504, 1504, 200)
+    seg_h, pos_h = train_batch["llm_seg"], train_batch["llm_pos"]
+    return cases + [
+        ("e_granite_decode", 8, 24, 8, 8, S, 64, torch.bfloat16, True, None,
+         decode_layout(rng, 8, S, 64, 320)),
+        ("f_audio_encoder_padded", 2, 20, 20, seg_f.shape[1], seg_f.shape[1], 64,
+         torch.bfloat16, False, None, (seg_f, seg_f, pos_f, pos_f)),
+        ("h_train_step_backbone", seg_h.shape[0], 28, 4, seg_h.shape[1], seg_h.shape[1],
+         128, torch.bfloat16, True, None, (seg_h, seg_h, pos_h, pos_h)),
     ]
 
 
@@ -249,6 +267,7 @@ def phase_build():
 # The bf16 kernels of each source that must multiply with wgmma and load
 # by TMA, by the marks in their SASS names.
 SASS_KERNELS = {"grouped_gemm.cu": ("hopper_kernel",),
+                "flash_fwd.cu": ("flash_fwd_wgmma_kernel",),
                 "flash_bwd.cu": ("flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")}
 
 
@@ -277,20 +296,40 @@ def check_sass(source, lib):
         raise RuntimeError(f"the bf16 kernels of {source} lack wgmma or TMA loads: {counts}")
 
 
-def phase_kernels(device):
+def fwd_grid(mode, blocks, B, H, Hkv, Tq):
+    """Blocks of a forward launch: packed, one per (stream, KV head);
+    tiled, one per (query head, 128-row Q tile)."""
+    if mode == "packed":
+        return B * Hkv
+    return B * H * -(-Tq // blocks["tiled"][0])
+
+
+def live_score_share(mode, blocks, count, mask, H, Hkv):
+    """Unmasked scores over the scores of the tiles the launch walks: a
+    tiled list entry is one Q tile x KV tile for each of H query heads, a
+    packed one a 64-row tile (the group's g * Tq rows) for each KV head."""
+    rows, keys = blocks[mode]
+    walked = int(count.sum()) * rows * keys * (Hkv if mode == "packed" else H)
+    return int(mask.sum()) * H / max(walked, 1)
+
+
+def phase_kernels(device, train_batch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
-        _launch, flash_attention_fwd, flash_attention_plain, kernel_blocks,
-        live_tile_lists, make_segment_mask)
+        _launch, flash_attention_fwd, flash_attention_plain, fwd_mode, fwd_tile_lists,
+        kernel_blocks, make_segment_mask)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("kernels", allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
-         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32, kernel_blocks=kernel_blocks())
+         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
+         kernel_blocks={str(t).replace("torch.", ""): kernel_blocks(t)
+                        for t in (torch.bfloat16, torch.float32)})
     rng = np.random.default_rng(0)
     results = {}
-    for name, B, H, Hkv, Tq, Tkv, D, dtype, causal, window, layout in kernel_cases(rng):
+    for name, B, H, Hkv, Tq, Tkv, D, dtype, causal, window, layout in kernel_cases(
+            rng, train_batch):
         q = torch.tensor(rng.normal(size=(B, H, Tq, D)), dtype=dtype, device=device)
         k = torch.tensor(rng.normal(size=(B, Hkv, Tkv, D)), dtype=dtype, device=device)
         v = torch.tensor(rng.normal(size=(B, Hkv, Tkv, D)), dtype=dtype, device=device)
@@ -300,23 +339,36 @@ def phase_kernels(device):
 
         out, lse = flash_attention_fwd(q, k, v, *ints, **kw)
         ref_out, ref_lse = flash_attention_plain(q, k, v, *ints, **kw)
+        # a second launch, its lists built with host syncs made errors,
+        # must give the same bits (no atomics, no read back)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = flash_attention_fwd(q, k, v, *ints, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         err = float((out.float() - ref_out.float()).abs().max())
         lse_err = float((lse - ref_lse).abs().max())
+        bitwise = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         atol, lse_atol = TOL[dtype]
         finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all())
+        del ref_out, ref_lse, again
 
-        bq, bk = kernel_blocks()
-        count, idx = live_tile_lists(*ints, block_q=bq, block_kv=bk, **kw)
+        blocks = kernel_blocks(dtype)
+        mode = fwd_mode(H, Hkv, Tq, blocks)
+        count, idx = fwd_tile_lists(*ints, mode=mode, blocks=blocks, **kw)
         mask = make_segment_mask(*ints, **kw)
         bound_ms, bound_by = bound(q, k, mask, H, dtype)
         attn_mask = mask[:, None]
         row = dict(
             case=name, q_shape=[B, H, Tq, D], kv_shape=[B, Hkv, Tkv, D],
             dtype=str(dtype).replace("torch.", ""), causal=causal, window=window,
+            mode=mode, tiles=blocks[mode], grid_blocks=fwd_grid(mode, blocks, B, H, Hkv, Tq),
             max_abs_err=err, lse_max_abs_err=lse_err, atol=atol, lse_atol=lse_atol,
+            bitwise_repeat=bitwise,
             # the bare launch: the wrapper's checks and live-tile lists excluded
-            ms=median_ms(lambda: _launch(q, k, v, *ints, count, idx, **kw)),
+            ms=median_ms(lambda: _launch(q, k, v, *ints, count, idx, mode=mode, **kw)),
             wrapper_ms=median_ms(lambda: flash_attention_fwd(q, k, v, *ints, **kw)),
             wrapper_host_ms=host_ms(lambda: flash_attention_fwd(q, k, v, *ints, **kw)),
             plain_ms=median_ms(lambda: flash_attention_plain(q, k, v, *ints, **kw)),
@@ -324,12 +376,15 @@ def phase_kernels(device):
                 q, k, v, attn_mask=attn_mask, enable_gqa=True)),
             bound_ms=bound_ms, bound_by=bound_by,
             tile_skip_fraction=1.0 - float(count.sum()) / idx.numel(),
+            live_score_share=live_score_share(mode, blocks, count, mask, H, Hkv),
         )
-        row["ok"] = finite and err <= atol and lse_err <= lse_atol
+        row["ok"] = finite and err <= atol and lse_err <= lse_atol and bitwise
         emit("kernels", **row)
+        del mask, attn_mask
         if not row["ok"]:
             raise RuntimeError(f"flash_fwd disagrees with its plain version: {row}")
         results[name] = row
+    torch.cuda.empty_cache()
     return results
 
 
@@ -851,7 +906,7 @@ def phase_train(cfg, batches, caps, redraws, device, phase="train"):
 # The port's kernels by the names the profiler shows (tgmm before gmm: the
 # fp32 "tgmm_kernel" contains "gmm_kernel").  The bf16 grouped GEMMs are one
 # template, hopper_kernel<TGMM, ...>, and tgmm's second pass adds its pieces.
-_KERNEL_NAMES = (("flash_fwd", ("flash_fwd_kernel",)),
+_KERNEL_NAMES = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
                  ("flash_dq", ("flash_dq_kernel", "flash_dq_wgmma_kernel")),
                  ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_wgmma_kernel")),
                  ("tgmm", ("tgmm_kernel", "hopper_kernel<true", "tgmm_reduce_kernel")),
@@ -1722,10 +1777,10 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     phase_build()
-    kern = phase_kernels(device)
     tcfg = train_cfg(TRAIN_DEPTH)
     batches, caps, redraws = train_batches(tcfg, TRAIN["steps"], per=TRAIN["per"],
                                            seed=TRAIN["seed"])
+    kern = phase_kernels(device, batches[0][0])
     kern_bwd = phase_kernels_bwd(device, batches[0][0])
     mcfg = moe_cfg()
     moe_batches, moe_caps, moe_redraws = train_batches(
@@ -1782,6 +1837,9 @@ def main() -> int:
     fwd = kernel_row("flash_fwd", "flash_fwd.cu", 181, serve_launches, kern["a_decode"],
                      "ms", "bound")
     fwd["launches_train"] = train_launches["flash_fwd"]
+    fwd_step = kern["h_train_step_backbone"]
+    fwd.update({f"train_{k}": fwd_step[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     step_case = kern_bwd["h_train_step_backbone"]
     dq = kernel_row("flash_dq", "flash_bwd.cu", 226, train_launches["flash_dq"], step_case,
                     "dq_ms", "dq_bound")

@@ -13,6 +13,10 @@ out in the dtype of q, lse ``[B, H, Tq]`` fp32, 0 on fully-masked rows.
 * :func:`flash_attention_fwd` -- the hand-written CUDA kernel
   ``csrc/flash_fwd.cu``, which replaces the Pallas ``_fwd_kernel``
   (``src/repro/kernels/flash_attention.py:181``).  CUDA tensors only.
+  bf16 runs in one of two modes (:func:`fwd_mode`): ``"packed"`` when a
+  GQA group's ``H // Hkv * Tq`` query rows fit one tile (decode: one
+  block per stream and KV head, K/V read once per group), else
+  ``"tiled"``; fp32 is always tiled.
 * :func:`flash_attention_bwd_plain` / :func:`flash_attention_bwd` -- the
   backward: ``delta = rowsum(do * o)`` in fp32, then dq from
   ``csrc/flash_bwd.cu``'s dq kernel (replaces ``_dq_kernel``, :226) and
@@ -25,10 +29,12 @@ package's interval rules, in torch.  The kernel wrapper evaluates them at
 the kernel's own tile sizes and compacts each (stream, Q tile) row of the
 mask into a list of live KV-tile indices plus a count, with device ops
 only (no host sync), so the kernel walks live tiles and nothing else.
-Each backward kernel has tiles of its own, per dtype (:func:`bwd_blocks`,
-read from the built library): :func:`bwd_tile_lists` makes the dq
-kernel's lists at dq's tiles and the dkv kernel's at dkv's, transposed to
-one list of live Q tiles per (stream, KV tile).
+Every kernel has tiles of its own, per dtype, read from the built
+library: :func:`kernel_blocks` for the forward (per mode;
+:func:`fwd_tile_lists`), :func:`bwd_blocks` for the backward, where
+:func:`bwd_tile_lists` makes the dq kernel's lists at dq's tiles and the
+dkv kernel's at dkv's, transposed to one list of live Q tiles per
+(stream, KV tile).
 """
 from __future__ import annotations
 
@@ -53,6 +59,8 @@ __all__ = [
     "flash_attention_dq",
     "flash_attention_fwd",
     "flash_attention_plain",
+    "fwd_mode",
+    "fwd_tile_lists",
     "kernel_blocks",
     "live_tile_mask",
     "live_tile_lists",
@@ -145,23 +153,28 @@ def make_segment_mask(q_seg, kv_seg, q_pos, kv_pos, *, causal: bool,
 
 def flash_attention_plain(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
                           causal: bool = True, window: int | None = None):
-    """Dense fp32 attention with the kernel's mask and zero rules.
-    Returns (out [B,H,Tq,D] in q's dtype, lse [B,H,Tq] fp32)."""
+    """Dense fp32 attention with the kernel's mask and zero rules.  One
+    stream at a time, to bound the score matrices' memory.  Returns
+    (out [B,H,Tq,D] in q's dtype, lse [B,H,Tq] fp32)."""
     B, H, Tq, D = q.shape
     Hkv, Tkv = k.shape[1], k.shape[2]
     g = H // Hkv
-    qf = q.float().reshape(B, Hkv, g, Tq, D)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * (1.0 / math.sqrt(D))
-    mask = make_segment_mask(q_seg, kv_seg, q_pos, kv_pos, causal=causal,
-                             window=window)[:, None, None]
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None]) * mask
-    l = p.sum(dim=-1)
-    l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / l_safe[..., None]
-    lse = torch.where(l > 0, m + torch.log(l_safe), torch.zeros_like(l))
-    return out.reshape(B, H, Tq, D).to(q.dtype), lse.reshape(B, H, Tq)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        qf = q[b].float().reshape(Hkv, g, Tq, D)
+        s = torch.einsum("hgqd,hkd->hgqk", qf, k[b].float()) * (1.0 / math.sqrt(D))
+        mask = make_segment_mask(q_seg[b], kv_seg[b], q_pos[b], kv_pos[b], causal=causal,
+                                 window=window)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None]) * mask
+        l = p.sum(dim=-1)
+        l_safe = torch.where(l == 0, torch.ones_like(l), l)
+        o = torch.einsum("hgqk,hkd->hgqd", p, v[b].float()) / l_safe[..., None]
+        out[b] = o.reshape(H, Tq, D).to(q.dtype)
+        lse[b] = torch.where(l > 0, m + torch.log(l_safe), torch.zeros_like(l)).reshape(H, Tq)
+    return out, lse
 
 
 def flash_attention_bwd_plain(q, k, v, do, out, lse, q_seg, kv_seg, q_pos, kv_pos, *,
@@ -209,17 +222,43 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("flash_fwd.cu")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_fwd.argtypes = [vp] * 11 + [i32] * 10 + [ctypes.c_float, i32, vp]
-    lib.flash_fwd.restype = i32
-    lib.flash_fwd_block_q.restype = i32
-    lib.flash_fwd_block_kv.restype = i32
+    lib.flash_fwd.argtypes = [vp] * 11 + [i32] * 10 + [ctypes.c_float, i32, i32, vp]
+    lib.flash_fwd_block_q.argtypes = lib.flash_fwd_block_kv.argtypes = [i32, i32]
+    for fn in (lib.flash_fwd, lib.flash_fwd_block_q, lib.flash_fwd_block_kv):
+        fn.restype = i32
     return lib
 
 
-def kernel_blocks() -> tuple[int, int]:
-    """The kernel's (query, KV) tile sizes, read from the built library."""
-    lib = _lib()
-    return lib.flash_fwd_block_q(), lib.flash_fwd_block_kv()
+_FWD_MODES = ("tiled", "packed")
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_blocks(dtype: torch.dtype) -> dict[str, tuple[int, int]]:
+    """The forward kernel's own tiles for ``dtype``, read from the built
+    library: ``{"tiled": (bq, bk), "packed": (rows, bk)}``, where
+    ``rows`` is the most ``H // Hkv * Tq`` query rows of a GQA group one
+    packed block holds (0: the dtype has no packed mode)."""
+    lib, code = _lib(), _DTYPE_CODES[dtype]
+    return {mode: (lib.flash_fwd_block_q(i, code), lib.flash_fwd_block_kv(i, code))
+            for i, mode in enumerate(_FWD_MODES)}
+
+
+def fwd_mode(H: int, Hkv: int, Tq: int, blocks: dict) -> str:
+    """``"packed"`` when a GQA group's ``H // Hkv * Tq`` query rows fit one
+    packed tile of ``blocks`` (:func:`kernel_blocks`): q and out are then
+    viewed as ``[B * Hkv, g * Tq, D]`` and one block per (stream, KV head)
+    reads its K/V once for the whole group.  Otherwise ``"tiled"``."""
+    return "packed" if 0 < H // Hkv * Tq <= blocks["packed"][0] else "tiled"
+
+
+def fwd_tile_lists(q_seg, kv_seg, q_pos, kv_pos, *, mode, blocks, causal, window):
+    """The lists the forward walks in ``mode``: :func:`live_tile_lists` at
+    the tiled mode's tiles, or, packed, at one Q tile of all Tq rows per
+    stream (every head of a group shares the stream's seg/pos).  Device
+    ops only."""
+    bq = q_seg.shape[1] if mode == "packed" else blocks["tiled"][0]
+    return live_tile_lists(q_seg, kv_seg, q_pos, kv_pos, block_q=bq,
+                           block_kv=blocks[mode][1], causal=causal, window=window)
 
 
 def live_tile_lists(q_seg, kv_seg, q_pos, kv_pos, *, block_q, block_kv, causal,
@@ -288,12 +327,6 @@ def _check(name, q, k, v, ints, more=()):
         raise ValueError(f"{name} needs contiguous tensors")
 
 
-def _tile_lists(q_seg, kv_seg, q_pos, kv_pos, *, causal, window):
-    bq, bk = kernel_blocks()
-    return live_tile_lists(q_seg, kv_seg, q_pos, kv_pos, block_q=bq, block_kv=bk,
-                           causal=causal, window=window)
-
-
 def _window_arg(window) -> int:
     return -1 if window is None else int(window)
 
@@ -302,19 +335,23 @@ def flash_attention_fwd(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
                         causal: bool = True, window: int | None = None):
     """Launch the CUDA kernel (``csrc/flash_fwd.cu``) on the current
     stream.  Same arguments and results as :func:`flash_attention_plain`;
-    q/k/v contiguous, one dtype (fp32 or bf16), D in {64, 128}.  Counts
+    q/k/v contiguous, one dtype (fp32 or bf16), D in {64, 128}.  Picks
+    the mode (:func:`fwd_mode`) and builds its lists from seg/pos.  Counts
     each launch in ``flash_attention_fwd.launches``."""
     ints = (q_seg, kv_seg, q_pos, kv_pos)
     _check("flash_attention_fwd", q, k, v, ints)
-    count, idx = _tile_lists(*ints, causal=causal, window=window)
-    return _launch(q, k, v, *ints, count, idx, causal=causal, window=window)
+    blocks = kernel_blocks(q.dtype)
+    mode = fwd_mode(q.shape[1], k.shape[1], q.shape[2], blocks)
+    count, idx = fwd_tile_lists(*ints, mode=mode, blocks=blocks, causal=causal,
+                                window=window)
+    return _launch(q, k, v, *ints, count, idx, mode=mode, causal=causal, window=window)
 
 
-def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, count, idx, *, causal, window):
+def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, count, idx, *, mode, causal, window):
     """The bare launch behind :func:`flash_attention_fwd`, on inputs it has
-    checked and live-tile lists from :func:`live_tile_lists` at
-    :func:`kernel_blocks`.  Allocates the outputs, launches on the current
-    stream, raises on a launch error, and counts the launch."""
+    checked and the lists of :func:`fwd_tile_lists` in ``mode``.
+    Allocates the outputs, launches on the current stream, raises on a
+    launch error, and counts the launch."""
     B, H, Tq, D = q.shape
     Hkv, Tkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -324,7 +361,7 @@ def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, count, idx, *, causal, window
         kv_seg.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), count.data_ptr(),
         idx.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Hkv, Tq, Tkv, D,
         idx.shape[1], idx.shape[2], int(causal), _window_arg(window),
-        1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
+        1.0 / math.sqrt(D), _FWD_MODES.index(mode), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed with cudaError {rc}")
