@@ -11,7 +11,8 @@ Phases, each printed as one JSON line and each raising on failure:
            print nvcc's time and ptxas' register, shared-memory and spill
            lines; require HGMMA (wgmma) and UTMALDG (TMA loads) in the
            SASS of every bf16 grouped-GEMM, flash-forward and
-           flash-backward kernel.
+           flash-backward kernel, and UTMALDG in every instantiation of
+           both selective-scan kernels.
   kernels  hold the forward kernel against its plain PyTorch version on
            the card at seven cases (the mllm_10b and granite decode
            shapes, which take the packed GQA mode; a packed bf16 stream of
@@ -77,11 +78,17 @@ Phases, each printed as one JSON line and each raising on failure:
            the shares of the flash and grouped-GEMM kernels.
   kernels_ssm  hold the selective-scan kernels (ssm_fwd; ssm_bwd for du,
            ddt, dA, dB, dC, dD) against the plain scan and its plain
-           backward at four cases (the first falcon-mamba-7b training
-           batch's shape; fp32 with ragged segments; N = 4 with ragged
-           channels; zamba2's mamba2 broadcast at N = 64), timed beside
-           their bounds; and run one Mamba-1 block forward and backward at
-           the training shape with host syncs made errors.
+           backward, and the forward's checkpoints against the plain
+           mirror of the kernels' chunks, at five cases (the first
+           falcon-mamba-7b training batch's shape; fp32 with ragged
+           segments; N = 4 with ragged channels; zamba2's mamba2
+           broadcast at N = 64; bf16 at di 100 and N 5, whose rows TMA
+           cannot map); each case is launched twice and must give
+           bitwise-equal outputs, prints the kernels' tiling and the dB/dC
+           partial bytes, and is timed beside its bounds (the backward
+           kernel alone and with its wrapper's allocations and sums); then
+           one Mamba-1 block forward and backward at the training shape
+           with host syncs made errors.
   serve_ssm  greedy decode of 8 requests through the dense serve step and
            ``init_cache`` on the full falcon-mamba-7b (64 layers, random
            bf16 weights from a seed): O(1) state, no kernel launches.
@@ -264,17 +271,22 @@ def phase_build():
     emit("build", wall_s=time.perf_counter() - t0)
 
 
-# The bf16 kernels of each source that must multiply with wgmma and load
-# by TMA, by the marks in their SASS names.
-SASS_KERNELS = {"grouped_gemm.cu": ("hopper_kernel",),
-                "flash_fwd.cu": ("flash_fwd_wgmma_kernel",),
-                "flash_bwd.cu": ("flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")}
+# The kernels of each source, by the marks in their SASS names, and the
+# instructions each must hold: the bf16 grouped-GEMM and attention kernels
+# multiply with wgmma (HGMMA) and load by TMA (UTMALDG); every
+# instantiation of both scan kernels loads by TMA.
+SASS_KERNELS = {"grouped_gemm.cu": (("hopper_kernel",), ("HGMMA", "UTMALDG")),
+                "flash_fwd.cu": (("flash_fwd_wgmma_kernel",), ("HGMMA", "UTMALDG")),
+                "flash_bwd.cu": (("flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"),
+                                 ("HGMMA", "UTMALDG")),
+                "selective_scan.cu": (("ssm_fwd_kernel", "ssm_bwd_kernel"), ("UTMALDG",))}
 
 
 def check_sass(source, lib):
     """Count HGMMA and UTMALDG in each kernel of the library's SASS
     (cuobjdump); every kernel named by ``SASS_KERNELS[source]`` must
-    have both, and every mark must name at least one kernel."""
+    hold the instructions listed there, and every mark must name at
+    least one kernel."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
@@ -287,13 +299,13 @@ def check_sass(source, lib):
         elif name is not None:
             for op in ("HGMMA", "UTMALDG"):
                 counts[name][op] += f" {op}." in line or f" {op} " in line
-    marks = SASS_KERNELS[source]
+    marks, required = SASS_KERNELS[source]
     hopper = {k: v for k, v in counts.items() if any(m in k for m in marks)}
     excerpt = [ln.strip() for ln in sass.splitlines() if "HGMMA" in ln or "UTMALDG" in ln][:4]
     emit("build", source=source, sass_counts=hopper, sass_excerpt=excerpt)
     if (not all(any(m in k for k in hopper) for m in marks)
-            or not all(v["HGMMA"] and v["UTMALDG"] for v in hopper.values())):
-        raise RuntimeError(f"the bf16 kernels of {source} lack wgmma or TMA loads: {counts}")
+            or not all(v[op] for v in hopper.values() for op in required)):
+        raise RuntimeError(f"kernels of {source} lack {' or '.join(required)}: {counts}")
 
 
 def fwd_grid(mode, blocks, B, H, Hkv, Tq):
@@ -1489,16 +1501,20 @@ def ssm_inputs(rng, device, dtype, Bs, T, di, N, seg, heads=None):
 
 
 def ssm_cases(rng, train_seg):
-    """(name, dtype, streams, T, di, N, seg, heads)."""
+    """(name, dtype, streams, T, di, N, seg, heads).  e_unmapped's rows
+    (u/dt 200 bytes, B/C 10 bytes) are no multiple of 16 bytes: TMA cannot
+    map them, and the kernels load them with plain loads."""
     seg_b, _ = packed_layout(rng, 2, 1000, 40, 400)
     seg_c, _ = packed_layout(rng, 3, 203, 10, 90)
     seg_d, _ = packed_layout(rng, 2, 2048, 128, 1024)
+    seg_e, _ = packed_layout(rng, 2, 300, 20, 120)
     Bs, T = train_seg.shape
     return [
         ("a_train_shape", torch.bfloat16, Bs, T, 8192, 16, train_seg, None),
         ("b_fp32_ragged", torch.float32, 2, 1000, 1024, 16, seg_b, None),
         ("c_small_n", torch.float32, 3, 203, 200, 4, seg_c, None),
         ("d_zamba2_broadcast", torch.bfloat16, 2, 2048, 80 * 64, 64, seg_d, (80, 64)),
+        ("e_unmapped", torch.bfloat16, 2, 300, 100, 5, seg_e, None),
     ]
 
 
@@ -1515,13 +1531,16 @@ def timed_once(fn):
 
 def phase_kernels_ssm(device, train_seg):
     """ssm_fwd / ssm_bwd against the plain scan and its plain backward at
-    four cases (the first falcon-mamba training batch's shape; fp32 with
-    ragged segments and T no multiple of 64; N = 4 with ragged channels;
-    zamba2's mamba2 broadcast at N = 64), timed beside their bounds; then
-    one Mamba-1 block at the training shape, forward and backward, with
-    host syncs made errors."""
+    five cases (the first falcon-mamba training batch's shape; fp32 with
+    ragged segments and T no multiple of the chunk; N = 4 with ragged
+    channels; zamba2's mamba2 broadcast at N = 64; rows TMA cannot map),
+    the checkpoints against the plain mirror of the kernels' chunks, two
+    launches bitwise equal, timed beside their bounds; then one Mamba-1
+    block at the training shape, forward and backward, with host syncs
+    made errors."""
     from repro_torch.kernels.selective_scan import (
-        selective_scan_bwd_plain, selective_scan_plain, ssm_bwd, ssm_fwd)
+        selective_scan_bwd_plain, selective_scan_chunked_plain, selective_scan_plain, ssm_bwd,
+        ssm_bwd_kernel_call, ssm_fwd, ssm_partial_bytes, ssm_tiling)
 
     set_tf32(False)
     rng = np.random.default_rng(4)
@@ -1531,29 +1550,42 @@ def phase_kernels_ssm(device, train_seg):
         args = (x["u"], x["dt"], x["A"], x["B"], x["C"], x["D"], x["seg"])
         dy = torch.tensor(rng.normal(size=(Bs, T, di)), dtype=dtype, device=device)
         dhf = torch.tensor(rng.normal(size=(Bs, di, N)), dtype=torch.float32, device=device)
-        y, ckpt, hf = ssm_fwd(*args)
-        got = ssm_bwd(*args, ckpt, dy, dhf)
+        tiling = ssm_tiling(N, dtype)
+        runs = []
+        for _ in range(2):  # two launches must agree bit for bit
+            y, ckpt, hf = ssm_fwd(*args)
+            runs.append((y, ckpt, hf, *ssm_bwd(*args, ckpt, dy, dhf)))
+        torch.cuda.synchronize()
+        labels = ("y", "ckpt", "h_final", "du", "ddt", "dA", "dB", "dC", "dD")
+        bitwise = {k: bool(torch.equal(a, b)) for k, a, b in zip(labels, *runs)}
+        y, ckpt, hf, *got = runs[0]
+        del runs
         (ref_y, ref_hf), fwd_plain_ms = timed_once(lambda: selective_scan_plain(*args))
         ref, bwd_plain_ms = timed_once(lambda: selective_scan_bwd_plain(*args, dy, dhf))
+        _, ref_ckpt, _ = selective_scan_chunked_plain(*args, chunk=tiling["chunk"],
+                                                      run=tiling["fwd_run"])
         errors = {}
-        for label, a, b in zip(("y", "h_final", "du", "ddt", "dA", "dB", "dC", "dD"),
-                               (y, hf, *got), (ref_y, ref_hf, *ref)):
+        for label, a, b in zip(("y", "h_final", "ckpt", "du", "ddt", "dA", "dB", "dC", "dD"),
+                               (y, hf, ckpt, *got), (ref_y, ref_hf, ref_ckpt, *ref)):
             scale = float(b.float().abs().max())
             err = float((a.float() - b.float()).abs().max())
             errors[label] = dict(max_abs_err=err, ref_max_abs=scale, dtype=str(a.dtype),
                                  tol=SSM_TOL[a.dtype] * max(scale, 1e-30),
                                  finite=bool(torch.isfinite(a.float()).all()))
             errors[label]["ok"] = errors[label]["finite"] and err <= errors[label]["tol"]
-        del got, ref, ref_y, ref_hf
+        del got, ref, ref_y, ref_hf, ref_ckpt
         n_ck = ckpt.shape[1]
         fb, fb_by, fb_terms = ssm_bound("fwd", Bs, T, di, N, x["u"].element_size(), n_ck)
         bb, bb_by, bb_terms = ssm_bound("bwd", Bs, T, di, N, x["u"].element_size(), n_ck)
+        launch_bwd, _ = ssm_bwd_kernel_call(*args, ckpt, dy, dhf)
         row = dict(
             case=name, dtype=str(dtype).replace("torch.", ""), streams=Bs, T=T, di=di, N=N,
             heads=heads, segments=[int(s.max()) for s in seg], padding_rows=int((seg == 0).sum()),
-            errors=errors,
+            tiling=tiling, partial_bytes=ssm_partial_bytes(Bs, T, di, N),
+            errors=errors, bitwise_equal=bitwise,
             fwd_ms=median_ms(lambda: ssm_fwd(*args), runs=SSM_TIMED_RUNS),
             bwd_ms=median_ms(lambda: ssm_bwd(*args, ckpt, dy, dhf), runs=SSM_TIMED_RUNS),
+            bwd_kernel_ms=median_ms(launch_bwd, runs=SSM_TIMED_RUNS),
             fwd_plain_ms=fwd_plain_ms, bwd_plain_ms=bwd_plain_ms,
             fwd_bound_ms=fb, fwd_bound_by=fb_by, fwd_bound_terms_ms=fb_terms,
             bwd_bound_ms=bb, bwd_bound_by=bb_by, bwd_bound_terms_ms=bb_terms,
@@ -1561,11 +1593,12 @@ def phase_kernels_ssm(device, train_seg):
             fwd_max_abs_err=max(errors[k]["max_abs_err"] for k in ("y", "h_final")),
             bwd_max_abs_err=max(errors[k]["max_abs_err"]
                                 for k in ("du", "ddt", "dA", "dB", "dC", "dD")))
-        row["ok"] = all(e["ok"] for e in errors.values())
+        row["ok"] = all(e["ok"] for e in errors.values()) and all(bitwise.values())
         emit("kernels_ssm", **row)
-        del x, args, dy, dhf, y, ckpt, hf
+        del x, args, dy, dhf, y, ckpt, hf, launch_bwd
         if not row["ok"]:
-            raise RuntimeError(f"selective scan disagrees with its plain version: {row}")
+            raise RuntimeError(f"selective scan disagrees with its plain version or with "
+                               f"itself: {row}")
         results[name] = row
     results["no_host_sync"] = ssm_block_without_sync(device, train_seg)
     torch.cuda.empty_cache()
@@ -1863,6 +1896,7 @@ def main() -> int:
          "plain_ms": scan_step[f"{kind}_plain_ms"], "bound_ms": scan_step[f"{kind}_bound_ms"],
          "bound_by": scan_step[f"{kind}_bound_by"], "library_ms": None}
         for kind, line in (("fwd", 50), ("bwd", 87))]
+    scan_rows[1]["kernel_ms"] = scan_step["bwd_kernel_ms"]  # "ms": with the wrapper's sums
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [fwd, dq, dkv, gmm_row, tgmm_row, *scan_rows]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,10 +1,11 @@
-// Hopper (sm_90a) building blocks for the port's bf16 kernels: shared-memory
-// addresses, mbarriers, TMA loads, wgmma descriptors and fences, bf16
-// packing, and the host's tensor-map encoding; for the attention kernels
-// (flash_fwd.cu, flash_bwd.cu) also their wgmma products, tile descriptors,
-// TMA tile loads, bf16 row stores, ring barriers and the mask.  Header
-// only; each including source keeps its own copy (inside an unnamed
-// namespace).
+// Hopper (sm_90a) building blocks for the port's kernels: shared-memory
+// addresses, mbarriers, TMA loads, 4-byte cp.async copies, flags between
+// blocks (acquire / release), wgmma descriptors and fences, bf16 packing,
+// and the host's tensor-map encoding;
+// for the attention kernels (flash_fwd.cu, flash_bwd.cu) also their wgmma
+// products, tile descriptors, TMA tile loads, bf16 row stores, ring
+// barriers and the mask.  Header only; each including source keeps its own
+// copy (inside an unnamed namespace).
 
 #pragma once
 
@@ -68,6 +69,46 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// 4-byte asynchronous copy global -> shared; ok = false writes a zero and
+// reads nothing.  Completion is tracked per thread in commit groups.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's commit groups are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Order this block's earlier reads of shared memory (generic proxy) before
+// TMA's writes into the same bytes (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A flag in device memory between blocks: read with acquire (later reads
+// see what the writer wrote before its release) and written with release
+// (after every thread of the writing block has fenced its writes).
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+// Spin until *p >= v.  As mbar_wait: a wait of ~2^34 cycles traps.
+__device__ __forceinline__ void wait_flag(const int* p, int v) {
+  long long start = 0;
+  while (ld_acquire(p) < v) {
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
+    __nanosleep(64);
+  }
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -341,17 +382,19 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first), strides in bytes for
-// dims 1.., the box in elements, 128-byte swizzle, zero fill past the edges.
+// A tensor map of `rank` dims (innermost first), strides in bytes for dims
+// 1.., the box in elements, zero fill past the edges; bf16 with 128-byte
+// swizzle unless another element type or swizzle is given.
 inline bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box) {
+                     const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encoder();
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-             CUDA_SUCCESS;
+         fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The [heads, T, D] bf16 tensor at ptr as a 3-D map with boxes of 64
