@@ -14,22 +14,27 @@ Phases, each printed as one JSON line and each raising on failure:
            flash-backward kernel, and UTMALDG in every instantiation of
            both selective-scan kernels.
   kernels  hold the forward kernel against its plain PyTorch version on
-           the card at seven cases (the mllm_10b and granite decode
+           the card at nine cases (the mllm_10b and granite decode
            shapes, which take the packed GQA mode; a packed bf16 stream of
            4096 tokens; fp32 with a window and GQA; causal=False; the
            padded, bidirectional audio encoder at head_dim 64; the
-           backbone at the first training step's shapes) and time it, its
+           backbone at the first training step's shapes; zamba2's shared
+           block at head_dim 80 at its first training batch and at its
+           decode shape, the operands zero-padded to 128 with the true
+           D's scale, the plain version at the true D) and time it, its
            wrapper, the plain version and torch's
            scaled_dot_product_attention (a yardstick the port never calls)
            with CUDA events; each case prints the mode and tiles it
            launched, and its wrapper runs again with host syncs made
-           errors and must give bitwise-equal out and lse.
+           errors and must give bitwise-equal out and lse (and zeros in
+           the padded columns).
   kernels_bwd  the same for the dq and dk/dv kernels against the plain
-           backward at five cases (a packed bf16 train stream; the padded,
+           backward at six cases (a packed bf16 train stream; the padded,
            bidirectional audio encoder at head_dim 64; fp32 with a window
            and GQA; the backbone at the first training step's shapes; bf16
            at head_dim 64 with a window and T = 1000, no multiple of the
-           tiles), with the backward of scaled_dot_product_attention as
+           tiles; zamba2's first training batch at head_dim 80, padded to
+           128), with the backward of scaled_dot_product_attention as
            yardstick; each case runs twice and must give bitwise-equal dq,
            dk and dv.
   serve    serve requests through ``Engine`` on the full-width mllm_10b
@@ -79,11 +84,12 @@ Phases, each printed as one JSON line and each raising on failure:
   kernels_ssm  hold the selective-scan kernels (ssm_fwd; ssm_bwd for du,
            ddt, dA, dB, dC, dD) against the plain scan and its plain
            backward, and the forward's checkpoints against the plain
-           mirror of the kernels' chunks, at five cases (the first
+           mirror of the kernels' chunks, at six cases (the first
            falcon-mamba-7b training batch's shape; fp32 with ragged
            segments; N = 4 with ragged channels; zamba2's mamba2
            broadcast at N = 64; bf16 at di 100 and N 5, whose rows TMA
-           cannot map); each case is launched twice and must give
+           cannot map; the first zamba2 training batch's shape, di 5,120,
+           N 64, head broadcast); each case is launched twice and must give
            bitwise-equal outputs, prints the kernels' tiling and the dB/dC
            partial bytes, and is timed beside its bounds (the backward
            kernel alone and with its wrapper's allocations and sums); then
@@ -101,6 +107,26 @@ Phases, each printed as one JSON line and each raising on failure:
            2 * layers (forward, again under remat) and layers (backward).
   train_ssm_profile  one more step under torch.profiler: busy share, and
            the scan kernels' shares.
+  serve_hybrid  greedy decode of 8 requests (prompts of 8..480 tokens, a
+           cache of 512 slots) through the dense serve step
+           and ``init_cache`` on the full zamba2-2.7b (54 Mamba-2 layers,
+           the shared attention + MLP block after every 6; random bf16
+           weights from a seed): decode ms a step, the state a sequence
+           holds, and B1 held to one launch per application of the shared
+           block (9) a decode step, the scans to none.
+  agree_hybrid  zamba2 at 4 layers of its full widths (two groups of 2,
+           so the shared block's gradient sums two uses) in fp32: greedy
+           streams of the card's kernel path against the port's plain
+           path on the CPU; the loss and every gradient of one step of the
+           kernel path against the port's plain paths on the same card
+           (scan backend, reference attention), and each of the two
+           against the CPU.
+  train_hybrid  post-balanced AdamW steps of the full zamba2 (all 54
+           layers) on train_ssm's text-only batches; one line per step,
+           the launches held to 2 x 54 ssm_fwd, 54 ssm_bwd, 2 x 9
+           flash_fwd, 9 flash_dq and 9 flash_dkv.
+  train_hybrid_profile  one more step under torch.profiler: busy share,
+           and the shares of the scan and attention kernels.
 
 Then the ``kernels`` summary line, the card's name and power limit, and
 the final status line.  Exits non-zero, printing no result, when no card
@@ -194,8 +220,10 @@ def decode_layout(rng, B, S, ctx_lo, ctx_hi):
     return q_seg, kv_seg, q_pos, kv_pos
 
 
-def kernel_cases(rng, train_batch):
-    """(name, B, H, Hkv, Tq, Tkv, D, dtype, causal, window, seg/pos)."""
+def kernel_cases(rng, train_batch, hybrid_batch):
+    """(name, B, H, Hkv, Tq, Tkv, D, dtype, causal, window, seg/pos).  The
+    zamba2 cases run at head_dim 80, which the kernels take zero-padded
+    to 128 (``padded_head_dim``)."""
     seg_b, pos_b = packed_layout(rng, 1, 4096, 64, 1024)
     seg_c, pos_c = packed_layout(rng, 2, 256, 16, 128)
     seg_d, pos_d = packed_layout(rng, 2, 512, 32, 256)
@@ -220,6 +248,20 @@ def kernel_cases(rng, train_batch):
          torch.bfloat16, False, None, (seg_f, seg_f, pos_f, pos_f)),
         ("h_train_step_backbone", seg_h.shape[0], 28, 4, seg_h.shape[1], seg_h.shape[1],
          128, torch.bfloat16, True, None, (seg_h, seg_h, pos_h, pos_h)),
+    ] + hybrid_kernel_cases(rng, hybrid_batch, HYBRID_STATE_SLOTS)
+
+
+def hybrid_kernel_cases(rng, hybrid_batch, S):
+    """zamba2's shared attention block at head_dim 80, MHA 32/32: the
+    first training batch (2 streams) and serve_hybrid's decode shape (8
+    rows, one query each, padded to 8: g * Tq = 8, packed, over its cache
+    of S slots with contexts up to S)."""
+    seg_j, pos_j = hybrid_batch["seg"], hybrid_batch["pos"]
+    return [
+        ("j_zamba2_train", seg_j.shape[0], 32, 32, seg_j.shape[1], seg_j.shape[1], 80,
+         torch.bfloat16, True, None, (seg_j, seg_j, pos_j, pos_j)),
+        ("k_zamba2_decode", 8, 32, 32, 8, S, 80, torch.bfloat16, True, None,
+         decode_layout(rng, 8, S, SERVE_HYBRID["prompt_lo"], S)),
     ]
 
 
@@ -325,12 +367,12 @@ def live_score_share(mode, blocks, count, mask, H, Hkv):
     return int(mask.sum()) * H / max(walked, 1)
 
 
-def phase_kernels(device, train_batch):
+def phase_kernels(device, train_batch, hybrid_batch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
         _launch, flash_attention_fwd, flash_attention_plain, fwd_mode, fwd_tile_lists,
-        kernel_blocks, make_segment_mask)
+        kernel_blocks, make_segment_mask, pad_head_dim)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -341,28 +383,33 @@ def phase_kernels(device, train_batch):
     rng = np.random.default_rng(0)
     results = {}
     for name, B, H, Hkv, Tq, Tkv, D, dtype, causal, window, layout in kernel_cases(
-            rng, train_batch):
+            rng, train_batch, hybrid_batch):
         q = torch.tensor(rng.normal(size=(B, H, Tq, D)), dtype=dtype, device=device)
         k = torch.tensor(rng.normal(size=(B, Hkv, Tkv, D)), dtype=dtype, device=device)
         v = torch.tensor(rng.normal(size=(B, Hkv, Tkv, D)), dtype=dtype, device=device)
         q_seg, kv_seg, q_pos, kv_pos = (torch.tensor(a, device=device) for a in layout)
         ints = (q_seg, kv_seg, q_pos, kv_pos)
         kw = dict(causal=causal, window=window)
+        # the kernel's operands: zero-padded to an instantiated head dim
+        # (none at D 64 or 128), with the true D's scale
+        (kq, kk, kv), scale = pad_head_dim((q, k, v))
+        Dp, kkw = kq.shape[-1], dict(kw, scale=scale)
 
-        out, lse = flash_attention_fwd(q, k, v, *ints, **kw)
+        out, lse = flash_attention_fwd(kq, kk, kv, *ints, **kkw)
         ref_out, ref_lse = flash_attention_plain(q, k, v, *ints, **kw)
         # a second launch, its lists built with host syncs made errors,
         # must give the same bits (no atomics, no read back)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            again = flash_attention_fwd(q, k, v, *ints, **kw)
+            again = flash_attention_fwd(kq, kk, kv, *ints, **kkw)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        err = float((out.float() - ref_out.float()).abs().max())
+        err = float((out[..., :D].float() - ref_out.float()).abs().max())
         lse_err = float((lse - ref_lse).abs().max())
         bitwise = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        pad_zero = not bool(out[..., D:].any())  # padded v columns give zeros
         atol, lse_atol = TOL[dtype]
         finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all())
         del ref_out, ref_lse, again
@@ -371,18 +418,20 @@ def phase_kernels(device, train_batch):
         mode = fwd_mode(H, Hkv, Tq, blocks)
         count, idx = fwd_tile_lists(*ints, mode=mode, blocks=blocks, **kw)
         mask = make_segment_mask(*ints, **kw)
+        # at the true D: a padded case's wasted products show against it
         bound_ms, bound_by = bound(q, k, mask, H, dtype)
         attn_mask = mask[:, None]
         row = dict(
             case=name, q_shape=[B, H, Tq, D], kv_shape=[B, Hkv, Tkv, D],
+            head_dim=D, kernel_head_dim=Dp,
             dtype=str(dtype).replace("torch.", ""), causal=causal, window=window,
             mode=mode, tiles=blocks[mode], grid_blocks=fwd_grid(mode, blocks, B, H, Hkv, Tq),
             max_abs_err=err, lse_max_abs_err=lse_err, atol=atol, lse_atol=lse_atol,
-            bitwise_repeat=bitwise,
+            bitwise_repeat=bitwise, padded_columns_zero=pad_zero,
             # the bare launch: the wrapper's checks and live-tile lists excluded
-            ms=median_ms(lambda: _launch(q, k, v, *ints, count, idx, mode=mode, **kw)),
-            wrapper_ms=median_ms(lambda: flash_attention_fwd(q, k, v, *ints, **kw)),
-            wrapper_host_ms=host_ms(lambda: flash_attention_fwd(q, k, v, *ints, **kw)),
+            ms=median_ms(lambda: _launch(kq, kk, kv, *ints, count, idx, mode=mode, **kkw)),
+            wrapper_ms=median_ms(lambda: flash_attention_fwd(kq, kk, kv, *ints, **kkw)),
+            wrapper_host_ms=host_ms(lambda: flash_attention_fwd(kq, kk, kv, *ints, **kkw)),
             plain_ms=median_ms(lambda: flash_attention_plain(q, k, v, *ints, **kw)),
             library_ms=median_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, enable_gqa=True)),
@@ -390,9 +439,9 @@ def phase_kernels(device, train_batch):
             tile_skip_fraction=1.0 - float(count.sum()) / idx.numel(),
             live_score_share=live_score_share(mode, blocks, count, mask, H, Hkv),
         )
-        row["ok"] = finite and err <= atol and lse_err <= lse_atol and bitwise
+        row["ok"] = finite and err <= atol and lse_err <= lse_atol and bitwise and pad_zero
         emit("kernels", **row)
-        del mask, attn_mask
+        del mask, attn_mask, kq, kk, kv
         if not row["ok"]:
             raise RuntimeError(f"flash_fwd disagrees with its plain version: {row}")
         results[name] = row
@@ -442,8 +491,9 @@ def padded_layout(rng, B, T, row, lo):
     return seg.astype(np.int32), pos.astype(np.int32)
 
 
-def bwd_cases(rng, train_batch):
-    """(name, B, H, Hkv, T, D, dtype, causal, window, seg, pos)."""
+def bwd_cases(rng, train_batch, hybrid_batch):
+    """(name, B, H, Hkv, T, D, dtype, causal, window, seg, pos); zamba2's
+    case at head_dim 80, zero-padded to 128 for the kernels."""
     seg_e, pos_e = packed_layout(rng, 1, 4096, 64, 1024)
     seg_f, pos_f = padded_layout(rng, 2, 5 * 1504, 1504, 200)
     seg_g, pos_g = packed_layout(rng, 2, 512, 16, 160)
@@ -459,6 +509,8 @@ def bwd_cases(rng, train_batch):
          torch.bfloat16, True, None, seg_h, pos_h),
         ("i_bf16_window_ragged", 2, 12, 4, 1000, 64, torch.bfloat16, True, 96, seg_i,
          pos_i),
+        ("j_zamba2_train", hybrid_batch["seg"].shape[0], 32, 32, hybrid_batch["seg"].shape[1],
+         80, torch.bfloat16, True, None, hybrid_batch["seg"], hybrid_batch["pos"]),
     ]
 
 
@@ -481,15 +533,16 @@ def sdpa_backward_ms(q, k, v, do, mask):
                      runs=BWD_TIMED_RUNS)
 
 
-def phase_kernels_bwd(device, train_batch):
+def phase_kernels_bwd(device, train_batch, hybrid_batch):
     from repro_torch.kernels.flash_attention import (
         bwd_blocks, bwd_tile_lists, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_dkv, flash_attention_dq, flash_attention_fwd, make_segment_mask)
+        flash_attention_dkv, flash_attention_dq, flash_attention_fwd, make_segment_mask,
+        pad_head_dim)
 
     rng = np.random.default_rng(1)
     results = {}
     for name, B, H, Hkv, T, D, dtype, causal, window, seg, pos in bwd_cases(
-            rng, train_batch):
+            rng, train_batch, hybrid_batch):
         def rand(*shape, scale=1.0):
             return torch.tensor(rng.normal(size=shape) * scale, dtype=dtype, device=device)
 
@@ -498,42 +551,48 @@ def phase_kernels_bwd(device, train_batch):
         s, p = torch.tensor(seg, device=device), torch.tensor(pos, device=device)
         ints = (s, s, p, p)
         kw = dict(causal=causal, window=window)
-        out, lse = flash_attention_fwd(q, k, v, *ints, **kw)
-        got = flash_attention_bwd(q, k, v, do, out, lse, *ints, **kw)
-        ref = flash_attention_bwd_plain(q, k, v, do, out, lse, *ints, **kw)
+        (kq, kk, kv, kdo), scale = pad_head_dim((q, k, v, do))
+        Dp, kkw = kq.shape[-1], dict(kw, scale=scale)
+        out, lse = flash_attention_fwd(kq, kk, kv, *ints, **kkw)
+        got = flash_attention_bwd(kq, kk, kv, kdo, out, lse, *ints, **kkw)
+        # the plain backward at the true D, on the kernel's out and lse
+        ref = flash_attention_bwd_plain(q, k, v, do, out[..., :D].contiguous(), lse, *ints,
+                                        **kw)
         # a second launch must give the same bits (no atomics)
-        again = flash_attention_bwd(q, k, v, do, out, lse, *ints, **kw)
+        again = flash_attention_bwd(kq, kk, kv, kdo, out, lse, *ints, **kkw)
         torch.cuda.synchronize()
-        err = {n: float((a.float() - b.float()).abs().max())
+        err = {n: float((a[..., :D].float() - b.float()).abs().max())
                for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
         ref_max = {n: float(b.float().abs().max()) for n, b in zip(("dq", "dk", "dv"), ref)}
         finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        pad_zero = not any(bool(a[..., D:].any()) for a in got)
         atol = TOL[dtype][0]
         del got, ref, again
 
         blocks = bwd_blocks(dtype)
         count, idx, t_count, t_idx = bwd_tile_lists(
             *ints, dq_blocks=blocks["dq"], dkv_blocks=blocks["dkv"], **kw)
-        delta = (do.float() * out.float()).sum(-1)
+        delta = (kdo.float() * out.float()).sum(-1)
         mask = make_segment_mask(*ints, **kw)
         dq_bound, dq_by = bwd_bound("dq", q, k, mask, dtype)
         dkv_bound, dkv_by = bwd_bound("dkv", q, k, mask, dtype)
         timed = lambda fn: median_ms(fn, runs=BWD_TIMED_RUNS)
         row = dict(
             case=name, q_shape=[B, H, T, D], kv_shape=[B, Hkv, T, D],
+            head_dim=D, kernel_head_dim=Dp,
             dtype=str(dtype).replace("torch.", ""), causal=causal, window=window,
             do_scale=DO_SCALE, max_abs_err=err, ref_max_abs=ref_max, atol=atol,
-            bitwise_repeat=bitwise, blocks=blocks,
+            bitwise_repeat=bitwise, padded_columns_zero=pad_zero, blocks=blocks,
             # bare launches on precomputed lists and delta
-            dq_ms=timed(lambda: flash_attention_dq(q, k, v, do, lse, delta, *ints, count,
-                                                   idx, **kw)),
-            dkv_ms=timed(lambda: flash_attention_dkv(q, k, v, do, lse, delta, *ints,
-                                                     t_count, t_idx, **kw)),
-            wrapper_ms=timed(lambda: flash_attention_bwd(q, k, v, do, out, lse, *ints,
-                                                         **kw)),
-            plain_ms=timed(lambda: flash_attention_bwd_plain(q, k, v, do, out, lse, *ints,
-                                                             **kw)),
+            dq_ms=timed(lambda: flash_attention_dq(kq, kk, kv, kdo, lse, delta, *ints, count,
+                                                   idx, **kkw)),
+            dkv_ms=timed(lambda: flash_attention_dkv(kq, kk, kv, kdo, lse, delta, *ints,
+                                                     t_count, t_idx, **kkw)),
+            wrapper_ms=timed(lambda: flash_attention_bwd(kq, kk, kv, kdo, out, lse, *ints,
+                                                         **kkw)),
+            plain_ms=timed(lambda: flash_attention_bwd_plain(
+                q, k, v, do, out[..., :D].contiguous(), lse, *ints, **kw)),
             library_ms=sdpa_backward_ms(q, k, v, do, mask),
             dq_bound_ms=dq_bound, dq_bound_by=dq_by, dkv_bound_ms=dkv_bound,
             dkv_bound_by=dkv_by,
@@ -542,9 +601,9 @@ def phase_kernels_bwd(device, train_batch):
             # longest list against the launch's mean per SM
             walk=bwd_walk(count, t_count, H, Hkv),
         )
-        row["ok"] = finite and max(err.values()) <= atol and bitwise
+        row["ok"] = finite and max(err.values()) <= atol and bitwise and pad_zero
         emit("kernels_bwd", **row)
-        del mask
+        del mask, kq, kk, kv, kdo
         if not row["ok"]:
             raise RuntimeError(f"flash backward disagrees with its plain version: {row}")
         results[name] = row
@@ -832,9 +891,11 @@ def expected_train_launches(cfg):
     forward (twice under remat: the backward recomputes it), dq and dk/dv;
     per moe layer three expert products forward (again under remat), their
     three dx products (gmm) and their three dw products (tgmm); per ssm
-    layer the scan forward (again under remat) and its backward."""
-    n_ssm = cfg.n_layers if cfg.family == "ssm" else 0
-    n_attn = cfg.n_layers - n_ssm + sum(e.n_layers for e in cfg.encoders)
+    layer the scan forward (again under remat) and its backward.  A hybrid
+    stack's attention layers are the applications of its shared block."""
+    n_ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_attn = (cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid"
+              else cfg.n_layers - n_ssm) + sum(e.n_layers for e in cfg.encoders)
     n_moe = cfg.n_layers if cfg.family == "moe" else 0
     fwd = 2 if cfg.remat else 1
     return {"flash_fwd": fwd * n_attn, "flash_dq": n_attn, "flash_dkv": n_attn,
@@ -1500,21 +1561,27 @@ def ssm_inputs(rng, device, dtype, Bs, T, di, N, seg, heads=None):
                 D=D.contiguous(), seg=torch.tensor(seg, dtype=torch.int32, device=device))
 
 
-def ssm_cases(rng, train_seg):
+def ssm_cases(rng, train_seg, hybrid_seg):
     """(name, dtype, streams, T, di, N, seg, heads).  e_unmapped's rows
     (u/dt 200 bytes, B/C 10 bytes) are no multiple of 16 bytes: TMA cannot
-    map them, and the kernels load them with plain loads."""
+    map them, and the kernels load them with plain loads.  f_zamba2_train
+    is the shape train_hybrid gives the kernels: its first batch's
+    segments, zamba2's d_inner and state, the Mamba-2 head broadcast."""
     seg_b, _ = packed_layout(rng, 2, 1000, 40, 400)
     seg_c, _ = packed_layout(rng, 3, 203, 10, 90)
     seg_d, _ = packed_layout(rng, 2, 2048, 128, 1024)
     seg_e, _ = packed_layout(rng, 2, 300, 20, 120)
     Bs, T = train_seg.shape
+    hcfg = hybrid_cfg()
+    heads = (hcfg.d_inner // hcfg.ssm_headdim, hcfg.ssm_headdim)
     return [
         ("a_train_shape", torch.bfloat16, Bs, T, 8192, 16, train_seg, None),
         ("b_fp32_ragged", torch.float32, 2, 1000, 1024, 16, seg_b, None),
         ("c_small_n", torch.float32, 3, 203, 200, 4, seg_c, None),
         ("d_zamba2_broadcast", torch.bfloat16, 2, 2048, 80 * 64, 64, seg_d, (80, 64)),
         ("e_unmapped", torch.bfloat16, 2, 300, 100, 5, seg_e, None),
+        ("f_zamba2_train", torch.bfloat16, *hybrid_seg.shape, hcfg.d_inner, hcfg.ssm_state,
+         hybrid_seg, heads),
     ]
 
 
@@ -1529,11 +1596,12 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def phase_kernels_ssm(device, train_seg):
+def phase_kernels_ssm(device, train_seg, hybrid_seg):
     """ssm_fwd / ssm_bwd against the plain scan and its plain backward at
-    five cases (the first falcon-mamba training batch's shape; fp32 with
+    six cases (the first falcon-mamba training batch's shape; fp32 with
     ragged segments and T no multiple of the chunk; N = 4 with ragged
-    channels; zamba2's mamba2 broadcast at N = 64; rows TMA cannot map),
+    channels; zamba2's mamba2 broadcast at N = 64; rows TMA cannot map;
+    the first zamba2 training batch's shape),
     the checkpoints against the plain mirror of the kernels' chunks, two
     launches bitwise equal, timed beside their bounds; then one Mamba-1
     block at the training shape, forward and backward, with host syncs
@@ -1545,7 +1613,7 @@ def phase_kernels_ssm(device, train_seg):
     set_tf32(False)
     rng = np.random.default_rng(4)
     results = {}
-    for name, dtype, Bs, T, di, N, seg, heads in ssm_cases(rng, train_seg):
+    for name, dtype, Bs, T, di, N, seg, heads in ssm_cases(rng, train_seg, hybrid_seg):
         x = ssm_inputs(rng, device, dtype, Bs, T, di, N, seg, heads)
         args = (x["u"], x["dt"], x["A"], x["B"], x["C"], x["D"], x["seg"])
         dy = torch.tensor(rng.normal(size=(Bs, T, di)), dtype=dtype, device=device)
@@ -1640,18 +1708,19 @@ def ssm_block_without_sync(device, train_seg):
 
 
 def greedy_serve(cfg, params, device, *, rows, prompt_lo, prompt_hi, new_tokens, seed,
-                 timed=False):
+                 timed=False, cache_len=None):
     """Greedy decode through the dense ``make_serve_step`` from
-    ``init_cache``: every row consumes one token per step, its prompt and
-    then its own generated tokens, until each row has generated
-    ``new_tokens``.  Returns (streams, per-step wall ms or None)."""
+    ``init_cache`` (of ``cache_len`` slots; None: as many as the steps
+    need): every row consumes one token per step, its prompt and then its
+    own generated tokens, until each row has generated ``new_tokens``.
+    Returns (streams, per-step wall ms or None)."""
     from repro_torch.serving.serve_step import init_cache, make_serve_step
 
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
                for n in rng.integers(prompt_lo, prompt_hi + 1, size=rows)]
     steps = max(len(p) for p in prompts) - 1 + new_tokens
-    cache = init_cache(cfg, rows, steps + 1, device=device)
+    cache = init_cache(cfg, rows, cache_len or steps + 1, device=device)
     step = make_serve_step(cfg)
     streams = [[] for _ in range(rows)]
     feed = [int(p[0]) for p in prompts]
@@ -1677,6 +1746,12 @@ def greedy_serve(cfg, params, device, *, rows, prompt_lo, prompt_hi, new_tokens,
     return streams, (wall if timed else None)
 
 
+def state_bytes(specs):
+    """Bytes of a cache of ``registry.cache_specs`` specs."""
+    return sum(int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+               for shape, dt in specs.values())
+
+
 def phase_serve_ssm(device):
     """The full falcon-mamba (64 layers, random bf16 weights from a seed)
     served greedily through the dense serve step: an O(1) state per
@@ -1697,9 +1772,6 @@ def phase_serve_ssm(device):
     total_s = time.perf_counter() - t0
     launches = read_launches()
     generated = sum(len(x) for x in streams)
-    state = cache_specs(cfg, 1, 1)
-    state_bytes = sum(int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
-                      for shape, dt in state.values())
     fields = dict(
         layers=cfg.n_layers, params=sum(p.numel() for p in _leaves(params)),
         weights_gb=weights_gb, rows=s["rows"], steps=len(wall), generated_tokens=generated,
@@ -1707,7 +1779,7 @@ def phase_serve_ssm(device):
         decode_step_ms_median=statistics.median(wall[1:]), first_step_ms=wall[0],
         decode_tokens_per_s=s["rows"] * len(wall) / total_s,
         generated_tokens_per_s=generated / total_s,
-        state_bytes_per_sequence=state_bytes,
+        state_bytes_per_sequence=state_bytes(cache_specs(cfg, 1, 1)),
         max_memory_allocated_gb=torch.cuda.max_memory_allocated(device) / 1e9,
         launches=launches)
     emit("serve_ssm", **fields)
@@ -1772,6 +1844,182 @@ def phase_agree_ssm(device):
         raise RuntimeError(f"agree_ssm failed: {fields}")
 
 
+# ----------------------------------------------------------------------
+# Hybrid: zamba2-2.7b, Mamba-2 layers on the scan kernels and one shared
+# attention block on the attention kernels at head_dim 80.
+# ----------------------------------------------------------------------
+HYBRID_ARCH = "zamba2_2_7b"
+# Text-only training batches as train_ssm's, at full width and all 54
+# layers (2.42 B parameters, ~29 GB of weights, gradients and AdamW state).
+TRAIN_HYBRID = dict(per=8, steps=6, seed=0)
+# Two groups of two Mamba-2 layers, so the shared block's gradient sums
+# two applications.  The kernels are held to SSM_AGREE's tolerances
+# against the port's plain paths on the same card.  Against the CPU the
+# gradients part by more with no kernel on either side: the card's and
+# the CPU's own fp32 arithmetic (cuBLAS against the CPU's GEMMs) part by
+# ~4.4e-5 at this depth.  agree_hybrid measures that in every run (the
+# card's plain path against the CPU) and holds it, and the kernel path,
+# to the CPU parity tests' 1e-4.
+HYBRID_AGREE = dict(SSM_AGREE, n_layers=4, every=2, cpu_grad_rel_l2_tol=1e-4)
+# serve_hybrid's cache length: the shared block attends over the full
+# history, so its KV cache (and B1's work a decode step) grows with the
+# context.  Prompts of up to 480 tokens and 32 new tokens fill up to 511
+# of its 512 slots.
+HYBRID_STATE_SLOTS = 512
+SERVE_HYBRID = dict(rows=8, prompt_lo=8, prompt_hi=480, new_tokens=32, seed=0)
+
+
+def hybrid_cfg(n_layers=None, every=None, dtype="bfloat16"):
+    """zamba2-2.7b at full widths on the scan and attention kernels;
+    ``n_layers`` / ``every`` cut the depth and the group (None: 54 and
+    6)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_ARCH, attention_backend="flash")
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                               shared_attn_every=every or cfg.shared_attn_every,
+                               dtype=dtype)
+
+
+def phase_serve_hybrid(device):
+    """The full zamba2 (54 Mamba-2 layers, 9 applications of the shared
+    block; random bf16 weights from a seed) served greedily through the
+    dense serve step from a cache of ``HYBRID_STATE_SLOTS`` slots, prompts
+    of up to 480 tokens: every application of the shared block launches B1
+    once a decode step (9 a step), the scans none."""
+    from repro_torch.configs import cache_specs
+    from repro_torch.models.model import init_params
+
+    cfg = hybrid_cfg()
+    groups = cfg.n_layers // cfg.shared_attn_every
+    torch.cuda.reset_peak_memory_stats(device)
+    params = init_params(cfg, seed=0, device=device)
+    weights_gb = torch.cuda.memory_allocated(device) / 1e9
+    reset_launches()
+    s = SERVE_HYBRID
+    t0 = time.perf_counter()
+    streams, wall = greedy_serve(cfg, params, device, rows=s["rows"],
+                                 prompt_lo=s["prompt_lo"], prompt_hi=s["prompt_hi"],
+                                 new_tokens=s["new_tokens"], seed=s["seed"], timed=True,
+                                 cache_len=HYBRID_STATE_SLOTS)
+    total_s = time.perf_counter() - t0
+    launches = read_launches()
+    generated = sum(len(x) for x in streams)
+    fixed = {k: v for k, v in cache_specs(cfg, 1, 1).items() if not k.startswith("sa_")}
+    per_slot = state_bytes({k: v for k, v in cache_specs(cfg, 1, 1).items()
+                            if k.startswith("sa_")})
+    expected = {k: 0 for k in launches}
+    expected["flash_fwd"] = groups * len(wall)
+    fields = dict(
+        layers=cfg.n_layers, shared_block_applications=groups,
+        params=sum(p.numel() for p in _leaves(params)), weights_gb=weights_gb,
+        rows=s["rows"], steps=len(wall), cache_slots=HYBRID_STATE_SLOTS,
+        max_context=len(wall), generated_tokens=generated,
+        decode_step_ms_mean=statistics.mean(wall[1:]),
+        decode_step_ms_median=statistics.median(wall[1:]), first_step_ms=wall[0],
+        # the first and last quarters of the steps: the cost of a longer history
+        decode_step_ms_first_quarter=statistics.median(wall[1:1 + len(wall) // 4]),
+        decode_step_ms_last_quarter=statistics.median(wall[-(len(wall) // 4):]),
+        decode_tokens_per_s=s["rows"] * len(wall) / total_s,
+        generated_tokens_per_s=generated / total_s,
+        ssm_state_bytes_per_sequence=state_bytes(fixed),
+        shared_kv_bytes_per_slot=per_slot, state_slots=HYBRID_STATE_SLOTS,
+        state_bytes_per_sequence=state_bytes(cache_specs(cfg, 1, HYBRID_STATE_SLOTS)),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+        launches=launches, flash_fwd_per_decode_step=launches["flash_fwd"] / len(wall))
+    emit("serve_hybrid", **fields)
+    ok = all(len(x) == s["new_tokens"] and all(0 <= t < cfg.vocab_size for t in x)
+             for x in streams)
+    if not ok or launches != expected:
+        raise RuntimeError(f"serve_hybrid phase failed: {fields} (expected launches "
+                           f"{expected})")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_agree_hybrid(device):
+    """zamba2 at 4 layers of its full widths (two groups of two Mamba-2
+    layers, the shared block after each) in fp32, same weights and
+    inputs: greedy streams of the card's kernel path against the port's
+    plain path on the CPU; the loss and every gradient of one step of the
+    kernel path against the port's plain paths on the same card (the
+    scan backend and reference attention, so that both take the same
+    GEMMs) within ``SSM_AGREE``'s tolerances; the kernel path and the
+    card's plain path each against the CPU's plain path within
+    ``HYBRID_AGREE["cpu_grad_rel_l2_tol"]``: the card's plain path parts
+    from the CPU by as much as the kernel path does, so the gap is the
+    two devices' fp32 arithmetic, not the kernels."""
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_step import batch_to_device, make_loss_fn
+
+    tf32 = set_tf32(False)
+    a = HYBRID_AGREE
+    cfg = hybrid_cfg(n_layers=a["n_layers"], every=a["every"], dtype="float32")
+    plain_cfg = dataclasses.replace(cfg, ssm_backend="scan", attention_impl="reference")
+    devices = {"cpu": torch.device("cpu"), "card": device}
+    params = {"card": init_params(cfg, seed=1, device=device)}
+    params["cpu"] = tree_map(lambda t: t.cpu(), params["card"])
+    serve = dict(SERVE_SSM, rows=a["rows"], new_tokens=a["new_tokens"], seed=1)
+    streams = {side: greedy_serve(cfg, p, devices[side], **serve)[0]
+               for side, p in params.items()}
+    mismatched = [i for i, (x, y) in enumerate(zip(streams["card"], streams["cpu"]))
+                  if x != y]
+
+    [(batch_np, _)], caps, _ = train_batches(cfg, 1, per=a["per"], seed=a["seed"],
+                                             scale=a["scale"], sampler=text_sampler)
+    out = {}
+    for run, side, run_cfg in (("cpu", "cpu", cfg), ("card", "card", cfg),
+                               ("card_plain", "card", plain_cfg)):
+        reset_launches()
+        leaves = tree_leaves(params[side])
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, m = make_loss_fn(run_cfg)(params[side],
+                                        batch_to_device(batch_np, devices[side]))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        out[run] = (loss.detach().cpu().double(), [g.detach().cpu().double() for g in grads],
+                    int(m["tokens"]), read_launches())
+    names = list(_flat_names(params["cpu"]))
+
+    def compare(got, want):
+        rel = {n: float((x - y).norm() / y.norm().clamp_min(1e-30))
+               for n, x, y in zip(names, got[1], want[1])}
+        worst = max(rel, key=rel.get)
+        return dict(loss_rel_err=float((got[0] - want[0]).abs() / want[0].abs()),
+                    worst_leaf=worst, worst_grad_rel_l2=rel[worst],
+                    shared_grad_rel_l2={n: r for n, r in rel.items()
+                                        if n.startswith("shared_attn/")})
+
+    kernels_vs_plain = compare(out["card"], out["card_plain"])
+    card_vs_cpu = compare(out["card"], out["cpu"])
+    card_plain_vs_cpu = compare(out["card_plain"], out["cpu"])
+    lk, gk, tokens, card_launches = out["card"]
+    finite = bool(torch.isfinite(lk)) and all(bool(torch.isfinite(g).all()) for g in gk)
+    expected = expected_train_launches(cfg)
+    fields = dict(layers=cfg.n_layers, shared_attn_every=cfg.shared_attn_every,
+                  dtype=cfg.dtype, streams_equal=not mismatched, mismatched=mismatched,
+                  generated=sum(len(t) for t in streams["cpu"]), cap_T=caps.llm,
+                  tokens=tokens, loss_card=float(lk), loss_cpu=float(out["cpu"][0]),
+                  loss_card_plain=float(out["card_plain"][0]),
+                  kernels_vs_card_plain=kernels_vs_plain, card_vs_cpu=card_vs_cpu,
+                  card_plain_vs_cpu=card_plain_vs_cpu,
+                  loss_rel_tol=a["loss_rel_tol"], grad_rel_l2_tol=a["grad_rel_l2_tol"],
+                  cpu_grad_rel_l2_tol=a["cpu_grad_rel_l2_tol"], leaves=len(names),
+                  finite=finite, card_launches=card_launches,
+                  card_plain_launches=out["card_plain"][3], **tf32)
+    emit("agree_hybrid", **fields)
+    if (mismatched or not finite or card_launches != expected
+            or any(out["card_plain"][3].values())
+            or max(c["loss_rel_err"] for c in (kernels_vs_plain, card_vs_cpu,
+                                               card_plain_vs_cpu)) > a["loss_rel_tol"]
+            or kernels_vs_plain["worst_grad_rel_l2"] > a["grad_rel_l2_tol"]
+            or max(card_vs_cpu["worst_grad_rel_l2"], card_plain_vs_cpu["worst_grad_rel_l2"])
+            > a["cpu_grad_rel_l2_tol"]):
+        raise RuntimeError(f"agree_hybrid failed: {fields} (expected launches {expected})")
+
+
 def _flat_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -1813,8 +2061,12 @@ def main() -> int:
     tcfg = train_cfg(TRAIN_DEPTH)
     batches, caps, redraws = train_batches(tcfg, TRAIN["steps"], per=TRAIN["per"],
                                            seed=TRAIN["seed"])
-    kern = phase_kernels(device, batches[0][0])
-    kern_bwd = phase_kernels_bwd(device, batches[0][0])
+    hcfg = hybrid_cfg()
+    hybrid_batches, hybrid_caps, hybrid_redraws = train_batches(
+        hcfg, TRAIN_HYBRID["steps"], per=TRAIN_HYBRID["per"], seed=TRAIN_HYBRID["seed"],
+        sampler=text_sampler)
+    kern = phase_kernels(device, batches[0][0], hybrid_batches[0][0])
+    kern_bwd = phase_kernels_bwd(device, batches[0][0], hybrid_batches[0][0])
     mcfg = moe_cfg()
     moe_batches, moe_caps, moe_redraws = train_batches(
         mcfg, TRAIN_MOE["steps"], per=TRAIN_MOE["per"], seed=TRAIN_MOE["seed"],
@@ -1826,7 +2078,8 @@ def main() -> int:
     ssm_batches, ssm_caps, ssm_redraws = train_batches(
         scfg, TRAIN_SSM["steps"], per=TRAIN_SSM["per"], seed=TRAIN_SSM["seed"],
         sampler=text_sampler)
-    kern_ssm = phase_kernels_ssm(device, ssm_batches[0][0]["seg"])
+    kern_ssm = phase_kernels_ssm(device, ssm_batches[0][0]["seg"],
+                                 hybrid_batches[0][0]["seg"])
 
     cfg = get_config("mllm_10b", attention_backend="flash")
     torch.cuda.reset_peak_memory_stats(device)
@@ -1864,6 +2117,16 @@ def main() -> int:
                         phase="train_ssm_profile")
     del params, opt_state, step_fn
     torch.cuda.empty_cache()
+
+    serve_hybrid_launches = phase_serve_hybrid(device)
+    phase_agree_hybrid(device)
+    torch.cuda.empty_cache()
+    params, opt_state, step_fn, hybrid_launches, _ = phase_train(
+        hcfg, hybrid_batches, hybrid_caps, hybrid_redraws, device, phase="train_hybrid")
+    phase_train_profile(step_fn, params, opt_state, hybrid_batches[-1][0], device,
+                        phase="train_hybrid_profile")
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
     if "jax" in sys.modules or "repro" in sys.modules:
         raise RuntimeError("the smoke run imported jax or the JAX package")
 
@@ -1880,6 +2143,19 @@ def main() -> int:
                      step_case, "dkv_ms", "dkv_bound")
     err = step_case["max_abs_err"]
     dq["max_abs_err"], dkv["max_abs_err"] = err["dq"], max(err["dk"], err["dv"])
+    # zamba2's shared block at head_dim 80 (zero-padded to 128)
+    fwd["launches_serve_hybrid"] = serve_hybrid_launches["flash_fwd"]
+    for prefix, key in (("hd80_train", "j_zamba2_train"), ("hd80_decode", "k_zamba2_decode")):
+        fwd.update({f"{prefix}_{k}": kern[key][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    hd80 = kern_bwd["j_zamba2_train"]
+    for row, kind, err80 in ((dq, "dq", hd80["max_abs_err"]["dq"]),
+                             (dkv, "dkv", max(hd80["max_abs_err"][n] for n in ("dk", "dv")))):
+        row.update(hd80_train_max_abs_err=err80, hd80_train_ms=hd80[f"{kind}_ms"],
+                   hd80_train_plain_ms=hd80["plain_ms"],
+                   hd80_train_bound_ms=hd80[f"{kind}_bound_ms"],
+                   hd80_train_bound_by=hd80[f"{kind}_bound_by"],
+                   hd80_train_library_ms=hd80["library_ms"])
     moe_step = kern_moe["ii_train"]["products"]
     gmm_row = kernel_row("gmm", "grouped_gemm.cu", 56, moe_launches["gmm"],
                          moe_step["gate_up"], "ms", "bound", module="grouped_gemm.py")
@@ -1897,6 +2173,14 @@ def main() -> int:
          "bound_by": scan_step[f"{kind}_bound_by"], "library_ms": None}
         for kind, line in (("fwd", 50), ("bwd", 87))]
     scan_rows[1]["kernel_ms"] = scan_step["bwd_kernel_ms"]  # "ms": with the wrapper's sums
+    for row in (fwd, dq, dkv, *scan_rows):
+        row["launches_train_hybrid"] = hybrid_launches[row["name"]]
+    hybrid_scan = kern_ssm["f_zamba2_train"]  # zamba2's training shape, head broadcast
+    for row, kind in zip(scan_rows, ("fwd", "bwd")):
+        row.update({f"train_hybrid_{k}": hybrid_scan[f"{kind}_{k}"] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+        row["train_hybrid_library_ms"] = None
+    scan_rows[1]["train_hybrid_kernel_ms"] = hybrid_scan["bwd_kernel_ms"]
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [fwd, dq, dkv, gmm_row, tgmm_row, *scan_rows]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

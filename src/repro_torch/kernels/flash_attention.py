@@ -65,6 +65,8 @@ __all__ = [
     "live_tile_mask",
     "live_tile_lists",
     "make_segment_mask",
+    "pad_head_dim",
+    "padded_head_dim",
     "tile_skip_fraction",
     "tile_stats",
     "transpose_tile_lists",
@@ -152,18 +154,21 @@ def make_segment_mask(q_seg, kv_seg, q_pos, kv_pos, *, causal: bool,
 
 
 def flash_attention_plain(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
-                          causal: bool = True, window: int | None = None):
-    """Dense fp32 attention with the kernel's mask and zero rules.  One
-    stream at a time, to bound the score matrices' memory.  Returns
-    (out [B,H,Tq,D] in q's dtype, lse [B,H,Tq] fp32)."""
+                          causal: bool = True, window: int | None = None,
+                          scale: float | None = None):
+    """Dense fp32 attention with the kernel's mask and zero rules; scores
+    scaled by ``scale`` (default ``1 / sqrt(D)``).  One stream at a time,
+    to bound the score matrices' memory.  Returns (out [B,H,Tq,D] in q's
+    dtype, lse [B,H,Tq] fp32)."""
     B, H, Tq, D = q.shape
     Hkv, Tkv = k.shape[1], k.shape[2]
     g = H // Hkv
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     for b in range(B):
         qf = q[b].float().reshape(Hkv, g, Tq, D)
-        s = torch.einsum("hgqd,hkd->hgqk", qf, k[b].float()) * (1.0 / math.sqrt(D))
+        s = torch.einsum("hgqd,hkd->hgqk", qf, k[b].float()) * scale
         mask = make_segment_mask(q_seg[b], kv_seg[b], q_pos[b], kv_pos[b], causal=causal,
                                  window=window)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
@@ -178,16 +183,18 @@ def flash_attention_plain(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
 
 
 def flash_attention_bwd_plain(q, k, v, do, out, lse, q_seg, kv_seg, q_pos, kv_pos, *,
-                              causal: bool = True, window: int | None = None):
+                              causal: bool = True, window: int | None = None,
+                              scale: float | None = None):
     """Dense fp32 backward with the kernels' rules: ``p = exp(s - lse)``
     on unmasked scores and exactly 0 elsewhere (fully-masked rows give
     zero gradients), ``delta = rowsum(do * o)``, ``ds = p (dp - delta)
-    scale``.  One stream at a time, to bound the score matrices' memory.
-    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    scale`` (``scale`` default ``1 / sqrt(D)``).  One stream at a time, to
+    bound the score matrices' memory.  Returns (dq, dk, dv) in the dtypes
+    of q, k, v."""
     B, H, Tq, D = q.shape
     Hkv, Tkv = k.shape[1], k.shape[2]
     g = H // Hkv
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     delta = (do.float() * out.float()).sum(-1)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
@@ -214,6 +221,30 @@ def flash_attention_bwd_plain(q, k, v, do, out, lse, q_seg, kv_seg, q_pos, kv_po
 # ----------------------------------------------------------------------
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+
+
+def padded_head_dim(D: int) -> int:
+    """The head dim the kernels run a head dim ``D`` at: the smallest
+    instantiated size at or above it (32 -> 64; 80, 100, 120 -> 128).
+    Zero columns are exact: padded q/k columns add 0 to every score,
+    padded v columns give output columns that are sliced off, and the
+    scale stays the true D's (the callers pass it).  Raises above 128."""
+    for size in _HEAD_DIMS:
+        if D <= size:
+            return size
+    raise ValueError(f"head_dim {D} above the kernels' largest, {_HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(tensors, *more: int) -> tuple[list[torch.Tensor], float]:
+    """The kernels' operands for q/k/v (and dO) at their true head dim D
+    (the last dim): each zero-padded to :func:`padded_head_dim` ``(D)``,
+    ``more`` padding the outer dims as ``F.pad``'s pairs do, and the scale
+    ``1 / sqrt(D)`` that every launch on the padded operands is given.
+    The one place the rule lives: the flash backend's ``_flash`` and the
+    smoke script's kernel cases both call it."""
+    D = tensors[0].shape[-1]
+    pad = (0, padded_head_dim(D) - D, *more)
+    return [F.pad(t, pad) for t in tensors], 1.0 / math.sqrt(D)
 
 
 @functools.lru_cache(maxsize=None)
@@ -331,11 +362,17 @@ def _window_arg(window) -> int:
     return -1 if window is None else int(window)
 
 
+def _scale_arg(scale, D) -> float:
+    return 1.0 / math.sqrt(D) if scale is None else float(scale)
+
+
 def flash_attention_fwd(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
-                        causal: bool = True, window: int | None = None):
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None):
     """Launch the CUDA kernel (``csrc/flash_fwd.cu``) on the current
     stream.  Same arguments and results as :func:`flash_attention_plain`;
-    q/k/v contiguous, one dtype (fp32 or bf16), D in {64, 128}.  Picks
+    q/k/v contiguous, one dtype (fp32 or bf16), D in {64, 128} (other
+    head dims arrive zero-padded, :func:`padded_head_dim`).  Picks
     the mode (:func:`fwd_mode`) and builds its lists from seg/pos.  Counts
     each launch in ``flash_attention_fwd.launches``."""
     ints = (q_seg, kv_seg, q_pos, kv_pos)
@@ -344,10 +381,12 @@ def flash_attention_fwd(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
     mode = fwd_mode(q.shape[1], k.shape[1], q.shape[2], blocks)
     count, idx = fwd_tile_lists(*ints, mode=mode, blocks=blocks, causal=causal,
                                 window=window)
-    return _launch(q, k, v, *ints, count, idx, mode=mode, causal=causal, window=window)
+    return _launch(q, k, v, *ints, count, idx, mode=mode, causal=causal, window=window,
+                   scale=scale)
 
 
-def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, count, idx, *, mode, causal, window):
+def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, count, idx, *, mode, causal, window,
+            scale=None):
     """The bare launch behind :func:`flash_attention_fwd`, on inputs it has
     checked and the lists of :func:`fwd_tile_lists` in ``mode``.
     Allocates the outputs, launches on the current stream, raises on a
@@ -361,7 +400,7 @@ def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, count, idx, *, mode, causal, 
         kv_seg.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), count.data_ptr(),
         idx.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Hkv, Tq, Tkv, D,
         idx.shape[1], idx.shape[2], int(causal), _window_arg(window),
-        1.0 / math.sqrt(D), _FWD_MODES.index(mode), _DTYPE_CODES[q.dtype],
+        _scale_arg(scale, D), _FWD_MODES.index(mode), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed with cudaError {rc}")
@@ -418,15 +457,15 @@ def _bwd_args(q, k, v, do, lse, delta, ints):
             delta.data_ptr(), *(t.data_ptr() for t in ints))
 
 
-def _bwd_dims(q, k, idx, causal, window):
+def _bwd_dims(q, k, idx, causal, window, scale):
     B, H, Tq, D = q.shape
     return (B, H, k.shape[1], Tq, k.shape[2], D, idx.shape[1], idx.shape[2],
-            int(causal), _window_arg(window), 1.0 / math.sqrt(D),
+            int(causal), _window_arg(window), _scale_arg(scale, D),
             _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos, count,
-                       idx, *, causal, window):
+                       idx, *, causal, window, scale=None):
     """Launch the dq kernel on checked inputs, walking the per-(stream,
     Q tile) lists ``count``/``idx`` made at the dq kernel's tiles
     (:func:`bwd_tile_lists`); returns dq in q's dtype.  Counts each
@@ -435,7 +474,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos, co
     rc = _bwd_lib().flash_bwd_dq(
         *_bwd_args(q, k, v, do, lse, delta, (q_seg, kv_seg, q_pos, kv_pos)),
         count.data_ptr(), idx.data_ptr(), dq.data_ptr(),
-        *_bwd_dims(q, k, idx, causal, window))
+        *_bwd_dims(q, k, idx, causal, window, scale))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq launch failed with cudaError {rc}")
     flash_attention_dq.launches += 1
@@ -443,7 +482,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos, co
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos,
-                        t_count, t_idx, *, causal, window):
+                        t_count, t_idx, *, causal, window, scale=None):
     """Launch the dkv kernel on checked inputs, walking the per-(stream,
     KV tile) lists ``t_count``/``t_idx`` made at the dkv kernel's tiles
     (:func:`bwd_tile_lists`); returns (dk, dv) in k's dtype, each KV
@@ -453,7 +492,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos,
     rc = _bwd_lib().flash_bwd_dkv(
         *_bwd_args(q, k, v, do, lse, delta, (q_seg, kv_seg, q_pos, kv_pos)),
         t_count.data_ptr(), t_idx.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_bwd_dims(q, k, t_idx.transpose(1, 2), causal, window))
+        *_bwd_dims(q, k, t_idx.transpose(1, 2), causal, window, scale))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv launch failed with cudaError {rc}")
     flash_attention_dkv.launches += 1
@@ -465,7 +504,8 @@ flash_attention_dkv.launches = 0
 
 
 def flash_attention_bwd(q, k, v, do, out, lse, q_seg, kv_seg, q_pos, kv_pos, *,
-                        causal: bool = True, window: int | None = None):
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None):
     """The CUDA backward.  Same arguments and results as
     :func:`flash_attention_bwd_plain`.  Builds each kernel's live-tile
     lists at its own tiles (:func:`bwd_blocks`) from seg/pos; ``delta``
@@ -478,7 +518,7 @@ def flash_attention_bwd(q, k, v, do, out, lse, q_seg, kv_seg, q_pos, kv_pos, *,
         *ints, dq_blocks=blocks["dq"], dkv_blocks=blocks["dkv"], causal=causal,
         window=window)
     delta = (do.float() * out.float()).sum(-1)
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, scale=scale)
     dq = flash_attention_dq(q, k, v, do, lse, delta, *ints, count, idx, **kw)
     dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, *ints, t_count, t_idx, **kw)
     return dq, dk, dv
@@ -491,20 +531,21 @@ class FlashAttention(torch.autograd.Function):
     """Segment flash attention with its backward: B1 forward, then the dq
     and dkv kernels on CUDA tensors; the plain versions on CPU tensors.
     Saves out and lse for the backward, which builds its own live-tile
-    lists from seg/pos; seg/pos get no gradient."""
+    lists from seg/pos; seg/pos get no gradient.  ``scale`` None is
+    ``1 / sqrt(D)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal, window):
+    def forward(ctx, q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal, window, scale=None):
         ints = (q_seg, kv_seg, q_pos, kv_pos)
+        kw = dict(causal=causal, window=window, scale=scale)
         if q.device.type == "cpu":
-            out, lse = flash_attention_plain(q, k, v, *ints, causal=causal,
-                                             window=window)
+            out, lse = flash_attention_plain(q, k, v, *ints, **kw)
         elif q.device.type == "cuda":
-            out, lse = flash_attention_fwd(q, k, v, *ints, causal=causal, window=window)
+            out, lse = flash_attention_fwd(q, k, v, *ints, **kw)
         else:
             raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
         ctx.save_for_backward(q, k, v, *ints, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.kw = kw
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -512,5 +553,5 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         q, k, v, *ints, out, lse = ctx.saved_tensors  # unpack once (checkpoint recomputes)
         bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, do, out, lse, *ints, causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None, None, None, None, None
+        dq, dk, dv = bwd(q, k, v, do, out, lse, *ints, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None, None

@@ -16,12 +16,14 @@ __all__ = ["flash_attention_op", "grouped_matmul_op", "selective_scan_op"]
 
 
 def flash_attention_op(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *, causal=True,
-                       window=None):
+                       window=None, scale=None):
     """Segment flash attention, differentiable in q, k and v (forward and
     backward kernels on CUDA, plain versions on CPU); returns out
-    [B, H, Tq, D]."""
+    [B, H, Tq, D].  ``scale`` (default ``1 / sqrt(D)``) multiplies the
+    scores: a zero-padded head dim keeps its true D's."""
     out, _ = FlashAttention.apply(q, k, v, q_seg, kv_seg, q_pos, kv_pos, bool(causal),
-                                  None if window is None else int(window))
+                                  None if window is None else int(window),
+                                  None if scale is None else float(scale))
     return out
 
 

@@ -18,8 +18,10 @@ restart at 0 per example.  :func:`attention` selects a ``backend``:
                    model-level ``[B, T, H, D]`` calling convention
                    (``kernels.ops.flash_attention_op``: the CUDA forward
                    and backward kernels on CUDA tensors, their plain
-                   versions on CPU tensors); ``flash_interpret`` is an
-                   alias, the JAX package's name for its CPU mode.
+                   versions on CPU tensors), a head dim the kernels do not
+                   instantiate zero-padded to one they do;
+                   ``flash_interpret`` is an alias, the JAX package's name
+                   for its CPU mode.
 
 Every backend is differentiable in q, k and v.
 
@@ -33,7 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import NEG_INF, make_segment_mask
+from repro_torch.kernels.flash_attention import NEG_INF, make_segment_mask, pad_head_dim
 from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.utils import round_up
 
@@ -195,27 +197,29 @@ def _flash(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *, causal, window, block_q,
     """The JAX package's ``_pallas_flash`` contract: pad T to tile
     multiples with segment 0 (masked out), run the kernel in the
     ``[B, H, T, D]`` layout, slice the padded query rows off.  K/V take
-    q's dtype (a bf16 cache under an fp32 model converts exactly)."""
+    q's dtype (a bf16 cache under an fp32 model converts exactly).  The
+    same copy zero-pads D to the kernels' size (``pad_head_dim``) and
+    the scores keep the true D's scale; the padded output columns are
+    sliced off, so autograd returns dq/dk/dv at the true D.  On either
+    device."""
     B, Tq, H, D = q.shape
     Tkv = k.shape[1]
     bq = min(block_q, round_up(Tq, 8))
     bk = min(block_kv, round_up(Tkv, 8))
     pad_q = round_up(Tq, bq) - Tq
     pad_k = round_up(Tkv, bk) - Tkv
-
-    def heads_first(x, n):
-        return F.pad(x, (0, 0, 0, 0, 0, n)).transpose(1, 2).contiguous()
+    (qp,), scale = pad_head_dim([q], 0, 0, 0, pad_q)
+    kvp, _ = pad_head_dim([k.to(q.dtype), v.to(q.dtype)], 0, 0, 0, pad_k)
 
     def padt(x, n):
         return F.pad(x.to(torch.int32), (0, n))
 
     out = flash_attention_op(
-        heads_first(q, pad_q), heads_first(k.to(q.dtype), pad_k),
-        heads_first(v.to(q.dtype), pad_k),
+        *(x.transpose(1, 2).contiguous() for x in (qp, *kvp)),
         padt(q_seg, pad_q), padt(kv_seg, pad_k), padt(q_pos, pad_q),
-        padt(kv_pos, pad_k),
-        causal=causal, window=None if window is None else int(window))
-    return out.transpose(1, 2)[:, :Tq]
+        padt(kv_pos, pad_k), causal=causal, window=None if window is None else int(window),
+        scale=scale)
+    return out.transpose(1, 2)[:, :Tq, :, :D]
 
 
 def attention(q, k, v, *, q_seg, kv_seg, q_pos, kv_pos, causal: bool = True,

@@ -1,10 +1,13 @@
-"""Single-token decode for the dense/moe/vlm and ssm families
+"""Single-token decode for the dense/moe/vlm, ssm and hybrid families
 (``repro.models.decode`` in PyTorch).
 
 Cache layouts (see ``configs.registry.paged_cache_specs``):
 
 * dense: k,v [L,B,S,Hkv,hd], kv_pos/kv_seg [B,S] shared across layers;
   the new token is written at ring index ``t % S``.
+* hybrid: the Mamba-2 state conv [L,B,K-1,di], h [L,B,H,P,N], and per
+  application g of the shared attention block sa_k/sa_v [G,B,S,Hkv,hd]
+  with sa_kv_pos/sa_kv_seg [B,S] (the full history, no window).
 * paged (the serving engine's path, ``block_tables`` given): k,v
   [L,NB,bs,Hkv,hd], kv_pos/kv_seg [NB,bs].  Each sequence's logical cache
   of S = W*bs slots is read through a block-table gather -- slot i lives
@@ -29,7 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attention
 from repro_torch.models.layers import apply_rope, layer_norm, rms_norm, rotary_embedding, swiglu
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.ssm import mamba1_decode_step
+from repro_torch.models.ssm import mamba1_decode_step, mamba2_decode_step
 
 __all__ = ["decode_step"]
 
@@ -159,18 +162,49 @@ def _decode_dense_paged(cfg, params, x, cache, t, block_tables):
                           (block_tables, rows, wblk, woff))
 
 
+def _ssm_layer_step(cfg, params, x, cache, l):
+    """Layer l's O(1) state update (Mamba-1 for ssm, Mamba-2 for hybrid),
+    written into ``cache["conv"][l]`` / ``cache["h"][l]``."""
+    lp = _layer(params, l)
+    conv = cache["conv"]
+    state = {"conv": conv[l], "h": cache["h"][l]}
+    if cfg.family == "hybrid":
+        o, st = mamba2_decode_step(lp, rms_norm(x, lp["norm"]), state,
+                                   ssm_state=cfg.ssm_state, headdim=cfg.ssm_headdim)
+    else:
+        o, st = mamba1_decode_step(lp, rms_norm(x, lp["norm"]), state,
+                                   ssm_state=cfg.ssm_state)
+    if st["conv"].dtype != conv.dtype:
+        cache["conv"] = conv = conv.to(st["conv"].dtype)
+    conv[l] = st["conv"]
+    cache["h"][l] = st["h"]
+    return x + o
+
+
 def _decode_ssm(cfg, params, x, cache):
-    conv, h = cache["conv"], cache["h"]
     for l in range(cfg.n_layers):
-        lp = _layer(params, l)
-        o, st = mamba1_decode_step(lp, rms_norm(x, lp["norm"]),
-                                   {"conv": conv[l], "h": h[l]}, ssm_state=cfg.ssm_state)
-        if st["conv"].dtype != conv.dtype:
-            conv = conv.to(st["conv"].dtype)
-        conv[l] = st["conv"]
-        h[l] = st["h"]
-        x = x + o
-    cache["conv"] = conv
+        x = _ssm_layer_step(cfg, params, x, cache, l)
+    return x
+
+
+def _decode_hybrid(cfg, params, x, cache, t):
+    """Groups of ``shared_attn_every`` Mamba-2 decode steps, each group
+    followed by the shared attention block on its own KV cache
+    ``sa_k[g]``/``sa_v[g]`` and the shared MLP.  The positions and
+    segments are written once per step."""
+    every = cfg.shared_attn_every
+    S = cache["sa_k"].shape[2]
+    pos_seg = {"kv_pos": cache["sa_kv_pos"], "kv_seg": cache["sa_kv_seg"]}
+    kv_pos, kv_seg = _update_pos_seg(pos_seg, t, S)
+    shared = params["shared_attn"]
+    for g in range(cfg.n_layers // every):
+        for l in range(g * every, (g + 1) * every):
+            x = _ssm_layer_step(cfg, params, x, cache, l)
+        h = rms_norm(x, shared["attn_norm"])
+        x = x + _attn_decode(cfg, shared, h, cache["sa_k"][g], cache["sa_v"][g], kv_pos,
+                             kv_seg, t, window=None)
+        h = rms_norm(x, shared["mlp_norm"])
+        x = x + swiglu(h, shared["w_gate"], shared["w_up"], shared["w_down"])
     return x
 
 
@@ -187,15 +221,19 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, t, *, block_tables=None
     ``params``; the cache is updated in place.
 
     Returns (logits [B, vocab] fp32, cache)."""
-    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
-        raise ValueError(f"the port decodes dense/moe/vlm/ssm families, not {cfg.family!r}")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+        raise ValueError(
+            f"the port decodes dense/moe/vlm/ssm/hybrid families, not {cfg.family!r}")
     x = params["embed"][tokens[:, 0]]  # [B,D]
     if block_tables is not None:
-        if cfg.family == "ssm":
-            raise ValueError("paged decode supports dense/moe/vlm families, not 'ssm'")
+        if cfg.family in ("ssm", "hybrid"):
+            raise ValueError(
+                f"paged decode supports dense/moe/vlm families, not {cfg.family!r}")
         x = _decode_dense_paged(cfg, params, x, cache, t, block_tables)
     elif cfg.family == "ssm":
         x = _decode_ssm(cfg, params, x, cache)
+    elif cfg.family == "hybrid":
+        x = _decode_hybrid(cfg, params, x, cache, t)
     else:
         x = _decode_dense(cfg, params, x, cache, t)
     x = _final(cfg, params, x)

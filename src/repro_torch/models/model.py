@@ -1,4 +1,4 @@
-"""Model assembly for the dense/moe/vlm and ssm families
+"""Model assembly for the dense/moe/vlm, ssm and hybrid families
 (``repro.models.model`` in PyTorch): parameter init with the modality
 encoders, the training forward over post-balanced batches, and the
 chunked cross-entropy.
@@ -78,14 +78,45 @@ def _init_mamba1(cfg: ModelConfig, dense, ones, device) -> Params:
             "out_proj": dense((L, di, D))}
 
 
+def _init_mamba2(cfg: ModelConfig, dense, ones, device) -> Params:
+    """A Mamba-2 layer stack (n_groups 1): ``in_proj`` gives z, x, B, C
+    and one dt per head.  ``A_log`` (0) and ``D`` (1) are per head and
+    fp32 whatever the model's dtype, as in the JAX package."""
+    L, D, di, N, K = cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    H = di // cfg.ssm_headdim
+    return {"norm": ones((L, D)), "in_proj": dense((L, D, 2 * di + 2 * N + H)),
+            "conv_w": dense((L, K, di), scale=0.5),
+            "dt_bias": torch.zeros((L, H), dtype=torch_dtype(cfg), device=device),
+            "A_log": torch.zeros((L, H), dtype=torch.float32, device=device),
+            "D": torch.ones((L, H), dtype=torch.float32, device=device),
+            "out_proj": dense((L, di, D))}
+
+
+def _init_shared_block(cfg: ModelConfig, dense, ones) -> Params:
+    """The hybrid family's one shared attention + SwiGLU block: a single,
+    unstacked weight set that every group of Mamba-2 layers reuses."""
+    D, F_ = cfg.d_model, cfg.d_ff
+    hd, H, Hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    p = {"attn_norm": ones((D,)), "mlp_norm": ones((D,)),
+         "wq": dense((D, H * hd)), "wk": dense((D, Hkv * hd)),
+         "wv": dense((D, Hkv * hd)), "wo": dense((H * hd, D))}
+    if cfg.qk_norm:
+        p.update(q_norm=ones((hd,)), k_norm=ones((hd,)))
+    p.update(w_gate=dense((D, F_)), w_up=dense((D, F_)), w_down=dense((F_, D)))
+    return p
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
-    """Parameters of a dense/moe/vlm/ssm config: the backbone and, under
-    ``encoder_<name>``, each modality encoder with its connector.  An moe
-    layer stack holds the router ``[L, D, E]`` in fp32 whatever the
+    """Parameters of a dense/moe/vlm/ssm/hybrid config: the backbone and,
+    under ``encoder_<name>``, each modality encoder with its connector.
+    An moe layer stack holds the router ``[L, D, E]`` in fp32 whatever the
     model's dtype, and experts ``[L, E, D, F]`` / ``[L, E, F, D]``; an ssm
-    stack is Mamba-1 layers (``_init_mamba1``)."""
-    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
-        raise ValueError(f"the port builds dense/moe/vlm/ssm backbones, not {cfg.family!r}")
+    stack is Mamba-1 layers (``_init_mamba1``); a hybrid stack Mamba-2
+    layers (``_init_mamba2``) and ``shared_attn``, one unstacked attention
+    + MLP block."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+        raise ValueError(
+            f"the port builds dense/moe/vlm/ssm/hybrid backbones, not {cfg.family!r}")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = torch_dtype(cfg)
@@ -100,6 +131,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
     params: Params = {"embed": dense((V, D), scale=1.0)}
     if cfg.family == "ssm":
         params["layers"] = _init_mamba1(cfg, dense, ones, device)
+    elif cfg.family == "hybrid":
+        params["layers"] = _init_mamba2(cfg, dense, ones, device)
+        params["shared_attn"] = _init_shared_block(cfg, dense, ones)
     else:
         params["layers"] = _init_attn_layers(cfg, dense, ones, device, gen)
     if not cfg.nonparametric_norm:
@@ -272,8 +306,9 @@ def forward(cfg: ModelConfig, params: Params, batch: dict, *,
     the moe family ``decoder_stack``'s dict of routing metrics.
     ``exchange(name, tokens)`` moves encoder-output tokens to their
     destination streams."""
-    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
-        raise ValueError(f"the port's forward runs dense/moe/vlm/ssm, not {cfg.family!r}")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+        raise ValueError(
+            f"the port's forward runs dense/moe/vlm/ssm/hybrid, not {cfg.family!r}")
     tokens = batch["tokens"].long()
     if cfg.encoders:
         S = tokens.shape[0]

@@ -1,5 +1,5 @@
 """Decoder and encoder stacks (``repro.models.transformer`` in PyTorch,
-the dense/moe/vlm, ssm and encoder paths).
+the dense/moe/vlm, ssm, hybrid and encoder paths).
 
 Layer parameters are stacked on a leading ``[L, ...]`` axis, as in the
 JAX package.  Where JAX scans one layer body over that axis, the port
@@ -11,7 +11,13 @@ layer runs its forward kernel twice per training step.  An moe layer
 returns ``(x, aux)`` from the checkpointed body, with the routing aux
 metrics of :func:`repro_torch.models.moe.moe_ffn`.  An ssm layer is a
 pre-norm Mamba-1 block with a residual; under remat it runs the
-selective-scan forward twice per training step.
+selective-scan forward twice per training step.  The hybrid stack
+(zamba2) runs groups of ``shared_attn_every`` pre-norm Mamba-2 layers,
+each group followed by one application of the shared attention + MLP
+block; under remat each Mamba-2 layer and each application is
+checkpointed once (the JAX package also checkpoints the group around
+them, a memory choice that would run each Mamba-2 forward a third time
+here; the numbers are the same either way).
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from repro_torch.models.layers import (
     swiglu,
 )
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.ssm import mamba1_block
+from repro_torch.models.ssm import mamba1_block, mamba2_block
 
 __all__ = ["decoder_stack", "encoder_stack"]
 
@@ -79,7 +85,7 @@ def _ffn(cfg: ModelConfig, p: Params, x, valid=None):
                        block_n=cfg.moe_block_n)
     if cfg.family == "audio":
         return gelu_mlp(x, p["w_in"], p["w_out"])
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm", "hybrid"):
         return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
     raise ValueError(f"the port has no feed-forward block for family {cfg.family!r}")
 
@@ -103,6 +109,11 @@ def _layer_slices(stacked: Params) -> list[Params]:
             for parts in zip(*(stacked[n].unbind(0) for n in names))]
 
 
+def _remat(cfg: ModelConfig, body, x):
+    """``body(x)``, checkpointed under ``cfg.remat``."""
+    return checkpoint(body, x, use_reentrant=False) if cfg.remat else body(x)
+
+
 def _run_layers(cfg: ModelConfig, stacked: Params, x, seg, pos, *, causal):
     """Returns (x, the per-layer aux dicts: one per layer for moe, else
     none)."""
@@ -111,7 +122,7 @@ def _run_layers(cfg: ModelConfig, stacked: Params, x, seg, pos, *, causal):
     for lp in _layer_slices(stacked):
         body = functools.partial(_attn_mlp_layer, cfg, lp, seg=seg, pos=pos, sin=sin,
                                  cos=cos, causal=causal)
-        out = checkpoint(body, x, use_reentrant=False) if cfg.remat else body(x)
+        out = _remat(cfg, body, x)
         if cfg.family == "moe":
             x, aux = out
             auxs.append(aux)
@@ -136,19 +147,51 @@ def _mamba1_layer(cfg: ModelConfig, p: Params, x, seg, ssm_kw):
     return x + mamba1_block(p, h, seg, ssm_state=cfg.ssm_state, **ssm_kw)
 
 
+def _mamba2_layer(cfg: ModelConfig, p: Params, x, seg, ssm_kw):
+    h = _norm(cfg, x, p.get("norm"))
+    return x + mamba2_block(p, h, seg, ssm_state=cfg.ssm_state, headdim=cfg.ssm_headdim,
+                            **ssm_kw)
+
+
+def _hybrid_stack(cfg: ModelConfig, params: Params, x, seg, pos):
+    """zamba2: layer ``g * every + i`` is the i-th Mamba-2 layer of group
+    g; after each group, the shared attention + MLP block (one weight
+    set, so its gradient sums every application)."""
+    every = cfg.shared_attn_every
+    n_groups = cfg.n_layers // every
+    if n_groups * every != cfg.n_layers:
+        raise ValueError(f"n_layers {cfg.n_layers} is no multiple of shared_attn_every "
+                         f"{every}")
+    sin, cos = rotary_embedding(pos, cfg.head_dim_, cfg.rope_theta)
+    ssm_kw = _ssm_kwargs(cfg)
+    layers = _layer_slices(params["layers"])
+    shared = functools.partial(_attn_mlp_layer, cfg, params["shared_attn"], seg=seg,
+                               pos=pos, sin=sin, cos=cos)
+
+    for g in range(n_groups):
+        for lp in layers[g * every:(g + 1) * every]:
+            x = _remat(cfg, functools.partial(_mamba2_layer, cfg, lp, seg=seg, ssm_kw=ssm_kw),
+                       x)
+        x = _remat(cfg, shared, x)
+    return x
+
+
 def decoder_stack(cfg: ModelConfig, params: Params, x, seg, pos):
-    """x [B,T,D] -> ([B,T,D], aux).  For dense/vlm/ssm aux is the scalar
-    aux loss, 0; for moe a dict: ``lb_loss`` summed over layers,
+    """x [B,T,D] -> ([B,T,D], aux).  For dense/vlm/ssm/hybrid aux is the
+    scalar aux loss, 0; for moe a dict: ``lb_loss`` summed over layers,
     ``expert_load`` [E] and ``dropped_frac`` averaged over layers."""
     if cfg.family == "ssm":
         ssm_kw = _ssm_kwargs(cfg)
         for lp in _layer_slices(params["layers"]):
-            body = functools.partial(_mamba1_layer, cfg, lp, seg=seg, ssm_kw=ssm_kw)
-            x = checkpoint(body, x, use_reentrant=False) if cfg.remat else body(x)
+            x = _remat(cfg, functools.partial(_mamba1_layer, cfg, lp, seg=seg, ssm_kw=ssm_kw),
+                       x)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        return (_hybrid_stack(cfg, params, x, seg, pos),
+                torch.zeros((), dtype=torch.float32, device=x.device))
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(
-            f"the port's decoder_stack runs dense/moe/vlm/ssm, not {cfg.family!r}")
+            f"the port's decoder_stack runs dense/moe/vlm/ssm/hybrid, not {cfg.family!r}")
     x, auxs = _run_layers(cfg, params["layers"], x, seg, pos, causal=True)
     if cfg.family == "moe":
         return x, {

@@ -82,5 +82,8 @@ def make_prefill_step(cfg: ModelConfig, *, attention_backend: str | None = None)
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device="cuda"):
     """Zero-initialised dense decode cache matching ``registry.cache_specs``
-    (the KV cache, or for the ssm family the O(1) conv window and state)."""
+    (the KV cache; for the ssm family the O(1) conv window and state; for
+    the hybrid family the Mamba-2 state and the shared block's KV caches).
+    The ssm and hybrid families serve through this dense cache and
+    :func:`make_serve_step`: the paged pool and ``Engine`` refuse them."""
     return zeros_like_specs(cache_specs(cfg, batch, seq_len), resolve_device(device))

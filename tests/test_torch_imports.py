@@ -32,6 +32,11 @@ SSM_SLICE = {
     "repro_torch.configs.falcon_mamba_7b", "repro_torch.configs.registry",
     "repro_torch.kernels.selective_scan", "repro_torch.models.ssm",
 }
+# The hybrid slice's modules: its own copy of the zamba2 config.
+HYBRID_SLICE = {
+    "repro_torch.configs.zamba2_2_7b", "repro_torch.models.decode",
+    "repro_torch.models.transformer",
+}
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -79,3 +84,9 @@ def test_moe_slice_modules_are_in_the_walk():
 def test_ssm_slice_modules_are_in_the_walk():
     """The import walk of the first test reaches the SSM slice's modules."""
     assert SSM_SLICE <= set(_modules())
+
+
+def test_hybrid_slice_modules_are_in_the_walk():
+    """The import walk of the first test reaches the hybrid slice's
+    modules, the port's own zamba2 config among them."""
+    assert HYBRID_SLICE <= set(_modules())

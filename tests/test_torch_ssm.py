@@ -383,10 +383,13 @@ def test_decode_steps_match_jax(variant):
 
 @pytest.mark.parametrize("arch,dtype", [("falcon_mamba_7b", "bfloat16"),
                                         ("falcon_mamba_7b", "float32"),
-                                        ("mllm_10b", "bfloat16")])
+                                        ("mllm_10b", "bfloat16"),
+                                        ("zamba2_2_7b", "bfloat16"),
+                                        ("zamba2_2_7b", "float32")])
 def test_cache_specs_and_init_cache_match_jax(arch, dtype):
-    """Shapes and dtypes of the dense decode cache (ssm state; KV cache),
-    at the full config and its smoke variant."""
+    """Shapes and dtypes of the dense decode cache (ssm state; KV cache;
+    the hybrid's Mamba-2 state and shared-block KV caches), at the full
+    config and its smoke variant."""
     for full in (True, False):
         tcfg = get_config(arch) if full else get_config(arch).smoke()
         jcfg = jax_get_config(arch) if full else jax_get_config(arch).smoke()
@@ -400,8 +403,8 @@ def test_cache_specs_and_init_cache_match_jax(arch, dtype):
             cache, jcache = init_cache(tcfg, 3, 40, device="cpu"), jax_init_cache(jcfg, 3, 40)
             for name, t in cache.items():
                 assert tuple(t.shape) == jcache[name].shape and not t.any(), name
-    with pytest.raises(ValueError, match="hybrid"):
-        cache_specs(dataclasses.replace(get_config("falcon_mamba_7b"), family="hybrid"), 1, 8)
+    with pytest.raises(ValueError, match="audio"):
+        cache_specs(dataclasses.replace(get_config("falcon_mamba_7b"), family="audio"), 1, 8)
 
 
 # ----------------------------------------------------------------------

@@ -151,10 +151,15 @@ def scan_main(libs) -> bool:
     [(batch, _)], _, _ = chip_smoke.train_batches(
         cfg, 1, per=chip_smoke.TRAIN_SSM["per"], seed=chip_smoke.TRAIN_SSM["seed"],
         sampler=chip_smoke.text_sampler)
+    hcfg = chip_smoke.hybrid_cfg()
+    [(hybrid_batch, _)], _, _ = chip_smoke.train_batches(
+        hcfg, 1, per=chip_smoke.TRAIN_HYBRID["per"], seed=chip_smoke.TRAIN_HYBRID["seed"],
+        sampler=chip_smoke.text_sampler)
     rng = np.random.default_rng(4)
     ok = True
     labels = ("y", "h_final", "du", "ddt", "dA", "dB", "dC", "dD")
-    for name, dtype, Bs, T, di, N, seg, heads in chip_smoke.ssm_cases(rng, batch["seg"]):
+    for name, dtype, Bs, T, di, N, seg, heads in chip_smoke.ssm_cases(rng, batch["seg"],
+                                                                     hybrid_batch["seg"]):
         x = chip_smoke.ssm_inputs(rng, dev, dtype, Bs, T, di, N, seg, heads)
         args = (x["u"], x["dt"], x["A"], x["B"], x["C"], x["D"], x["seg"])
         dy = torch.tensor(rng.normal(size=(Bs, T, di)), dtype=dtype, device=dev)
