@@ -54,6 +54,23 @@ Phases, each printed as one JSON line and each raising on failure:
            and the kernels that take the time.
   train_agree  loss and every parameter gradient of the kernel path
            against the reference backend at 2 layers of each stack, fp32.
+  exchange_dp  the communicator's collectives across processes: the
+           encoders' plans of the first training batch with random bf16
+           payloads of the width the exchange moves (the backbone's
+           d_model), at 2 ranks sharing the card over gloo in modes a2a,
+           ragged and allgather, and at 1 rank over NCCL; every result and
+           the gradient sent back through it must equal the single-process
+           global take's; bytes each rank sends and ms (time-shared).
+  train_dp  mllm_10b at full widths and 1 + 2 + 2 layers in fp32: 2 DP
+           ranks on the card over gloo (rank 0 sends each rank its shard of
+           the train phase's batches; no rank plans on its own), the
+           encoder tokens exchanged by the a2a collective and the gradients
+           summed in buckets, against the single-process 2-stream run on
+           the same weights and batches: the loss of each of 3 steps within
+           TRAIN_AGREE's loss_rel_tol, the step-1 gradients within its
+           grad_rel_l2_tol, the ranks' parameters bitwise equal after every
+           step (a digest per rank), each rank's B1-B3 launches a step as
+           expected, each rank's peak memory.
   kernels_moe  hold the grouped-GEMM kernels (gmm, its transposed form for
            dx, tgmm for dw) against their plain versions at five cases:
            four of granite-moe-3b-a800m's widths (the decode shape; the
@@ -2020,6 +2037,324 @@ def phase_agree_hybrid(device):
         raise RuntimeError(f"agree_hybrid failed: {fields} (expected launches {expected})")
 
 
+# ----------------------------------------------------------------------
+# Data parallel: one process per DP rank on torch.distributed.
+# ----------------------------------------------------------------------
+# Two ranks share the one card over gloo (NCCL runs one rank per card), so
+# every time they report is time-shared.  Ranks are spawned, bounded by
+# DP_TIMEOUT_S, after the parent built the kernels.
+DP_WORLD = 2
+DP_TIMEOUT_S = 420
+EXCHANGE_MODES = ("a2a", "ragged", "allgather")
+EXCHANGE_RUNS = 10
+# fp32 with TF32 off: TRAIN_AGREE's limits are fp32 limits (one bf16
+# rounding of a gradient is already ~2e-3 relative, above grad_rel_l2_tol).
+# mllm_10b's full widths, the depth sized from one rank's measured peak:
+# 36.78 GB at 2 + 2 + 2 layers (1.742 B parameters, 16 bytes each with fp32
+# AdamW moments) left two replicas 6.4 GB under 80 GB; one backbone layer
+# less (233 M parameters, 3.73 GB) leaves them ~14 GB.
+TRAIN_DP_DEPTH = (1, 2, 2)
+TRAIN_DP = dict(steps=3, dtype="float32")
+
+
+def first_batch_plans(cfg, d):
+    """The encoders' communicator plans of the ``train`` phase's first
+    batch, planned again from its draw at ``d`` instances (at d = 1 its
+    examples all in one instance), with the capacities of that draw."""
+    from repro_torch.core.orchestrator import MLLMGlobalOrchestrator
+
+    draw = [train_sampler(np.random.default_rng(1000 * TRAIN["seed"] + i), TRAIN["per"])
+            for i in range(TRAIN["d"])]
+    if d == 1:
+        draw = [[ex for inst in draw for ex in inst]]
+    orch = MLLMGlobalOrchestrator(cfg, d)
+    return orch.plan_phases(draw, orch.default_capacities(draw)).comm_plans
+
+
+def dp_rendezvous(tag):
+    import tempfile
+
+    return f"file://{tempfile.mkdtemp(prefix=f'chip_smoke_{tag}_')}/rendezvous"
+
+
+def exchange_rank(rank, world, init_method, backend, cases):
+    """One rank of ``exchange_dp``: every case in every mode, its result
+    and the gradient sent back through it, and the forward's median ms."""
+    import torch.distributed as dist
+
+    from repro_torch.core.communicator import apply_comm_plan, plan_to_device
+    from repro_torch.launch.mesh import close_dp, init_dp
+
+    dp = init_dp(rank, world, device="cuda", backend=backend, init_method=init_method,
+                 timeout_s=DP_TIMEOUT_S)
+    try:
+        out = {}
+        for name, plan, x_all, w_all in cases:
+            arrays = plan_to_device(plan, dp.device)
+            x = x_all[rank * plan.cap_in:(rank + 1) * plan.cap_in].to(dp.device)
+            w = w_all[rank * plan.cap_out:(rank + 1) * plan.cap_out].to(dp.device)
+            for mode in EXCHANGE_MODES:
+                xs = x.clone().requires_grad_(True)
+                y = apply_comm_plan(xs, arrays, dp.group, mode=mode)
+                (g,) = torch.autograd.grad(y, xs, grad_outputs=w)
+                times = []
+                for _ in range(EXCHANGE_RUNS):
+                    dist.barrier(group=dp.group)
+                    torch.cuda.synchronize(dp.device)
+                    t0 = time.perf_counter()
+                    apply_comm_plan(x, arrays, dp.group, mode=mode)
+                    torch.cuda.synchronize(dp.device)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                out[(name, mode)] = (y.detach().cpu(), g.cpu(), statistics.median(times))
+        return {"describe": dp.describe(), "results": out}
+    finally:
+        close_dp()
+
+
+def rank_bytes_sent(plan, rank, mode, row_bytes):
+    """Bytes rank ``rank`` sends to its peers in ``mode`` (its own chunk
+    stays)."""
+    d = plan.d
+    if mode == "a2a":
+        rows = (d - 1) * plan.chunk_cap
+    elif mode == "ragged":
+        rows = int(plan.send_sizes[rank].sum() - plan.send_sizes[rank, rank])
+    else:  # allgather
+        rows = (d - 1) * plan.cap_in
+    return int(rows) * row_bytes
+
+
+def phase_exchange_dp(device, tcfg, first_batch):
+    """The communicator's collectives on the card: the encoders' plans of
+    the first training batch with random bf16 payloads of the width the
+    exchange moves (the connector's output, the backbone's d_model), at
+    2 ranks over gloo (modes a2a, ragged, allgather) and at 1 rank over
+    NCCL; every result and the gradient sent back through it must equal
+    the single-process global take's."""
+    from repro_torch.core.communicator import apply_comm_plan, plan_to_device
+    from repro_torch.launch.mesh import spawn_ranks
+
+    width = tcfg.d_model
+    row_bytes = width * torch.tensor([], dtype=torch.bfloat16).element_size()
+    gen = torch.Generator().manual_seed(11)
+    rows, failed = [], []
+    for world, backend in ((DP_WORLD, "gloo"), (1, "nccl")):
+        plans = first_batch_plans(tcfg, world)
+        if world == TRAIN["d"] and any(
+                not np.array_equal(p.global_gather, first_batch[f"enc_{n}_plan_global_gather"])
+                for n, p in plans.items()):
+            raise RuntimeError("exchange_dp: the plans differ from the train batch's")
+        cases, want = [], {}
+        for name, plan in plans.items():
+            x = torch.randn((world * plan.cap_in, width), generator=gen).to(torch.bfloat16)
+            w = torch.randn((world * plan.cap_out, width), generator=gen).to(torch.bfloat16)
+            xs = x.to(device).requires_grad_(True)
+            y = apply_comm_plan(xs, plan_to_device(plan, device), None, mode="gather")
+            (g,) = torch.autograd.grad(y, xs, grad_outputs=w.to(device))
+            cases.append((name, plan, x, w))
+            want[name] = (y.detach().cpu(), g.cpu())
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(exchange_rank, world, (world, dp_rendezvous(f"x{world}"),
+                                                   backend, cases),
+                            timeout_s=DP_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        for name, plan, _, _ in cases:
+            wy, wg = want[name]
+            for mode in EXCHANGE_MODES:
+                got = [r["results"][(name, mode)] for r in ranks]
+                equal = (torch.equal(torch.cat([y for y, _, _ in got]), wy)
+                         and torch.equal(torch.cat([g for _, g, _ in got]), wg))
+                row = dict(backend=backend, world=world, time_shared=world > 1,
+                           encoder=name, mode=mode, width=width, cap_in=plan.cap_in,
+                           cap_out=plan.cap_out, chunk_cap=plan.chunk_cap,
+                           tokens_moved=int(plan.post_mask.sum()),
+                           bytes_sent_per_rank=[rank_bytes_sent(plan, r, mode, row_bytes)
+                                                for r in range(world)],
+                           ms_per_rank=[ms for _, _, ms in got], equal=equal,
+                           staged=False)
+                emit("exchange_dp", **row)
+                rows.append(row)
+                if not equal:
+                    failed.append((backend, name, mode))
+        emit("exchange_dp", backend=backend, world=world, groups=[r["describe"] for r in ranks],
+             spawn_and_run_s=spawn_s)
+    if failed:
+        raise RuntimeError(f"exchange_dp: results differ from the global take: {failed}")
+    return rows
+
+
+def param_digest(params):
+    """A digest of every parameter's bits: per leaf, sums in int64 of its
+    words weighted by their positions, hashed together."""
+    import hashlib
+
+    from repro_torch.training.optimizer import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(params):
+        words = leaf.detach().reshape(-1).view(torch.int32 if leaf.element_size() == 4
+                                               else torch.int16)
+        sums = []
+        for lo in range(0, words.numel(), 1 << 24):
+            chunk = words[lo:lo + (1 << 24)].long()
+            pos = torch.arange(lo + 1, lo + 1 + chunk.numel(), device=chunk.device)
+            sums.append((chunk * pos).sum())
+        h.update(torch.stack(sums).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rel_l2_chunked(a, b):
+    """||a - b|| / ||b|| over flat chunks (no full-size temporaries)."""
+    num = den = 0.0
+    a, b = a.reshape(-1), b.reshape(-1)
+    for lo in range(0, b.numel(), 1 << 24):
+        x, y = a[lo:lo + (1 << 24)].double(), b[lo:lo + (1 << 24)].double()
+        num += float(((x - y) ** 2).sum())
+        den += float((y ** 2).sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _lrs(n):
+    from repro_torch.training.optimizer import cosine_schedule
+
+    return [float(cosine_schedule(i, peak_lr=TRAIN["peak_lr"], warmup=TRAIN["warmup"],
+                                  total=n)) for i in range(n)]
+
+
+def train_dp_rank(rank, world, init_method, cfg, batches):
+    """One rank of ``train_dp``.  Rank 0 first runs the single-process
+    reference (both streams, no group) while rank 1 waits; then both ranks
+    start from the same weights and run the DP steps, rank 0 sending each
+    rank its shard.  Returns per-step rows, digests, peaks and, on rank
+    0, the reference and the step-1 gradient errors."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import close_dp, init_dp
+    from repro_torch.launch.train import receive_shard
+    from repro_torch.training.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.training.train_step import (allreduce_grads, batch_to_device,
+                                                 init_train_state, make_loss_fn,
+                                                 make_train_step)
+
+    set_tf32(False)
+    dp = init_dp(rank, world, device="cuda", backend="gloo", init_method=init_method,
+                 timeout_s=DP_TIMEOUT_S)
+    dev, lrs, expected = dp.device, _lrs(len(batches)), expected_train_launches(cfg)
+    out = {"describe": dp.describe(), "expected_launches": expected}
+
+    def grads_of(params, batch, group):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = make_loss_fn(cfg, group=group)(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        return allreduce_grads(grads, group) if group is not None else list(grads)
+
+    def steps(params, opt_state, group, shard_of):
+        step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN["peak_lr"]), group=group)
+        rows = []
+        for i, batch_np in enumerate(batches):
+            batch = batch_to_device(shard_of(batch_np), dev)
+            torch.cuda.synchronize(dev)
+            reset_launches()
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch, lr=lrs[i])
+            torch.cuda.synchronize(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            rows.append(dict(step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                             tokens=int(m["tokens"]), wall_ms=wall_ms,
+                             launches=read_launches(), digest=param_digest(params)))
+        return rows
+
+    try:
+        if rank == 0:
+            torch.cuda.reset_peak_memory_stats(dev)
+            params, opt_state = init_train_state(cfg, seed=TRAIN["seed"], device=dev)
+            ref_grads = [g.cpu() for g in grads_of(params, batch_to_device(batches[0], dev),
+                                                   None)]
+            out["reference"] = steps(params, opt_state, None, lambda b: b)
+            out["reference_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            del params, opt_state
+            torch.cuda.empty_cache()
+        dist.barrier(group=dp.group)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, opt_state = init_train_state(cfg, seed=TRAIN["seed"], device=dev)
+        out["n_params"] = sum(p.numel() for p in tree_leaves(params))
+        out["names"] = list(_flat_names(params))
+        first = batch_to_device(receive_shard(dp, batches[0] if rank == 0 else None), dev)
+        grads = grads_of(params, first, dp.group)
+        out["grads_digest"] = param_digest({str(i): g for i, g in enumerate(grads)})
+        if rank == 0:
+            out["grad_rel_l2"] = [_rel_l2_chunked(g, r.to(dev)) for g, r in
+                                  zip(grads, ref_grads)]
+            del ref_grads
+        del grads
+        out["rows"] = steps(params, opt_state, dp.group,
+                            lambda b: receive_shard(dp, b if rank == 0 else None))
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+        free, total = torch.cuda.mem_get_info(dev)
+        out["card_free_gb"], out["card_total_gb"] = free / 1e9, total / 1e9
+        return out
+    finally:
+        close_dp()
+
+
+def phase_train_dp(device, batches):
+    """mllm_10b at full widths, TRAIN_DP_DEPTH layers, fp32: 2 DP ranks on
+    the one card over gloo against the single-process 2-stream run on the
+    same weights and batches (the ``train`` phase's first TRAIN_DP
+    batches): the loss of every step within TRAIN_AGREE's loss_rel_tol, the
+    step-1 gradients within its grad_rel_l2_tol, the ranks' parameters
+    bitwise equal after every step, each rank's B1-B3 launches a step as
+    expected, and each rank's peak memory."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cfg = train_cfg(TRAIN_DP_DEPTH, dtype=TRAIN_DP["dtype"])
+    batches = [b for b, _ in batches[:TRAIN_DP["steps"]]]
+    parent_reserved_gb = torch.cuda.memory_reserved(device) / 1e9
+    t0 = time.perf_counter()
+    r0, r1 = spawn_ranks(train_dp_rank, DP_WORLD, (DP_WORLD, dp_rendezvous("train"), cfg,
+                                                   batches), timeout_s=DP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    a = TRAIN_AGREE
+    expected, names = r0["expected_launches"], r0["names"]
+    ref = r0["reference"]
+    loss_rel = [abs(x["loss"] - y["loss"]) / abs(y["loss"]) for x, y in zip(r0["rows"], ref)]
+    worst = max(range(len(names)), key=lambda i: r0["grad_rel_l2"][i])
+    digests_equal = [x["digest"] == y["digest"] for x, y in zip(r0["rows"], r1["rows"])]
+    launches_ok = all(row["launches"] == expected for r in (r0, r1) for row in r["rows"])
+    for i, (x, y, z) in enumerate(zip(r0["rows"], r1["rows"], ref)):
+        emit("train_dp", step=i, loss_dp=x["loss"], loss_single=z["loss"],
+             loss_rel_err=loss_rel[i], grad_norm_dp=x["grad_norm"],
+             grad_norm_single=z["grad_norm"], tokens=x["tokens"],
+             wall_ms_per_rank=[x["wall_ms"], y["wall_ms"]], wall_ms_single=z["wall_ms"],
+             time_shared=True, launches_per_rank=[x["launches"], y["launches"]],
+             launches_single=z["launches"], digests_equal=digests_equal[i])
+    fields = dict(
+        ranks=[r0["describe"], r1["describe"]], layers=cfg.n_layers,
+        encoder_layers={e.name: e.n_layers for e in cfg.encoders}, dtype=cfg.dtype,
+        params=r0["n_params"], steps=len(batches), expected_launches_per_step=expected,
+        launches_ok=launches_ok, loss_rel_tol=a["loss_rel_tol"],
+        worst_loss_rel_err=max(loss_rel), grad_rel_l2_tol=a["grad_rel_l2_tol"],
+        worst_leaf=names[worst], worst_grad_rel_l2=r0["grad_rel_l2"][worst],
+        leaves=len(names), grads_equal_across_ranks=r0["grads_digest"] == r1["grads_digest"],
+        digests_equal=all(digests_equal), peak_gb_per_rank=[r0["peak_gb"], r1["peak_gb"]],
+        peak_reserved_gb_per_rank=[r0["peak_reserved_gb"], r1["peak_reserved_gb"]],
+        reference_peak_gb=r0["reference_peak_gb"],
+        card_free_gb_after=[r0["card_free_gb"], r1["card_free_gb"]],
+        card_total_gb=r0["card_total_gb"], parent_reserved_gb=parent_reserved_gb,
+        time_shared=True, spawn_and_run_s=spawn_s)
+    emit("train_dp_summary", **fields)
+    if (not launches_ok or not all(digests_equal) or not fields["grads_equal_across_ranks"]
+            or max(loss_rel) > a["loss_rel_tol"]
+            or r0["grad_rel_l2"][worst] > a["grad_rel_l2_tol"]
+            or not np.isfinite([row["loss"] for row in r0["rows"]]).all()):
+        raise RuntimeError(f"train_dp failed: {fields}")
+    return {name: [sum(row["launches"][name] for row in r["rows"]) for r in (r0, r1)]
+            for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+
+
 def _flat_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -2096,6 +2431,9 @@ def main() -> int:
     del params, opt_state, step_fn
     torch.cuda.empty_cache()
     phase_train_agree(device)
+    phase_exchange_dp(device, tcfg, batches[0][0])
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    dp_launches = phase_train_dp(device, batches)
 
     serve_moe_launches = phase_serve_moe(device)
     torch.cuda.empty_cache()
@@ -2175,6 +2513,8 @@ def main() -> int:
     scan_rows[1]["kernel_ms"] = scan_step["bwd_kernel_ms"]  # "ms": with the wrapper's sums
     for row in (fwd, dq, dkv, *scan_rows):
         row["launches_train_hybrid"] = hybrid_launches[row["name"]]
+    for row in (fwd, dq, dkv):
+        row["launches_train_dp_per_rank"] = dp_launches[row["name"]]
     hybrid_scan = kern_ssm["f_zamba2_train"]  # zamba2's training shape, head broadcast
     for row, kind in zip(scan_rows, ("fwd", "bwd")):
         row.update({f"train_hybrid_{k}": hybrid_scan[f"{kind}_{k}"] for k in (

@@ -1,10 +1,27 @@
-"""Pipeline stage partition (``repro.sharding.specs.stage_partition``,
-copied; the mesh and partition specs are not ported yet)."""
+"""Placements (``repro.sharding.specs``): the DP shard of a batch and the
+pipeline stage partition.  Parameters are replicated on every DP rank;
+the FSDP/TP placements of ``param_specs`` are not ported yet."""
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["stage_partition"]
+__all__ = ["shard_batch", "stage_partition"]
+
+
+def shard_batch(batch: dict, rank: int, d: int) -> dict:
+    """DP rank ``rank``'s shard of an orchestrator batch (the port's form
+    of ``batch_specs``: every array is ``[d, ...]`` on its leading axis,
+    so a rank keeps ``[rank:rank+1]``).  Slot indices are per stream and
+    stay as they are; ``global_gather`` holds flat indices into the
+    all-gathered ``[d * cap_in]`` buffer, which only the ``allgather``
+    exchange reads, and is sliced the same way.  Works on numpy arrays
+    and tensors alike."""
+    if not 0 <= rank < d:
+        raise ValueError(f"rank {rank} outside a DP group of {d}")
+    bad = {k: tuple(v.shape) for k, v in batch.items() if v.shape[:1] != (d,)}
+    if bad:
+        raise ValueError(f"batch arrays must lead with the DP axis of {d}: {bad}")
+    return {k: v[rank:rank + 1] for k, v in batch.items()}
 
 
 def stage_partition(n_layers: int, pp: int,

@@ -37,6 +37,12 @@ HYBRID_SLICE = {
     "repro_torch.configs.zamba2_2_7b", "repro_torch.models.decode",
     "repro_torch.models.transformer",
 }
+# The data-parallel slice's modules.
+DP_SLICE = {
+    "repro_torch.core.communicator", "repro_torch.launch.mesh",
+    "repro_torch.launch.train", "repro_torch.sharding.specs",
+    "repro_torch.training.train_step",
+}
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -90,3 +96,10 @@ def test_hybrid_slice_modules_are_in_the_walk():
     """The import walk of the first test reaches the hybrid slice's
     modules, the port's own zamba2 config among them."""
     assert HYBRID_SLICE <= set(_modules())
+
+
+def test_dp_slice_modules_are_in_the_walk():
+    """The import walk of the first test reaches the data-parallel slice's
+    modules: the communicator's device half, the DP group and the
+    launcher."""
+    assert DP_SLICE <= set(_modules())
