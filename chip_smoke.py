@@ -14,14 +14,17 @@ Phases, each printed as one JSON line and each raising on failure:
            flash-backward kernel, and UTMALDG in every instantiation of
            both selective-scan kernels.
   kernels  hold the forward kernel against its plain PyTorch version on
-           the card at nine cases (the mllm_10b and granite decode
+           the card at twelve cases (the mllm_10b and granite decode
            shapes, which take the packed GQA mode; a packed bf16 stream of
            4096 tokens; fp32 with a window and GQA; causal=False; the
            padded, bidirectional audio encoder at head_dim 64; the
            backbone at the first training step's shapes; zamba2's shared
            block at head_dim 80 at its first training batch and at its
            decode shape, the operands zero-padded to 128 with the true
-           D's scale, the plain version at the true D) and time it, its
+           D's scale, the plain version at the true D; MLLM-18B's vision
+           encoder at head_dim 100 and MLLM-84B's 64/8-head backbone at
+           their first training batches, and MLLM-84B's decode shape,
+           whose 8 x 8 query rows a group fill the packed tile) and time it, its
            wrapper, the plain version and torch's
            scaled_dot_product_attention (a yardstick the port never calls)
            with CUDA events; each case prints the mode and tiles it
@@ -34,7 +37,9 @@ Phases, each printed as one JSON line and each raising on failure:
            and GQA; the backbone at the first training step's shapes; bf16
            at head_dim 64 with a window and T = 1000, no multiple of the
            tiles; zamba2's first training batch at head_dim 80, padded to
-           128), with the backward of scaled_dot_product_attention as
+           128; MLLM-18B's vision at head_dim 100 and MLLM-84B's backbone
+           at their first training batches), with the backward of
+           scaled_dot_product_attention as
            yardstick; each case runs twice and must give bitwise-equal dq,
            dk and dv.
   serve    serve requests through ``Engine`` on the full-width mllm_10b
@@ -66,7 +71,7 @@ Phases, each printed as one JSON line and each raising on failure:
            the train phase's batches; no rank plans on its own), the
            encoder tokens exchanged by the a2a collective and the gradients
            summed in buckets, against the single-process 2-stream run on
-           the same weights and batches: the loss of each of 3 steps within
+           the same weights and batches: the loss of each of 2 steps within
            TRAIN_AGREE's loss_rel_tol, the step-1 gradients within its
            grad_rel_l2_tol, the ranks' parameters bitwise equal after every
            step (a digest per rank), each rank's B1-B3 launches a step as
@@ -145,6 +150,23 @@ Phases, each printed as one JSON line and each raising on failure:
   train_hybrid_profile  one more step under torch.profiler: busy share,
            and the shares of the scan and attention kernels.
 
+  serve_mllm18, serve_mllm84  the paper's MLLM-18B (all 48 backbone
+           layers) and MLLM-84B (24 of its 80) at full widths, random bf16
+           weights from a seed, no encoders (serving prefills text), serving
+           the serve phase's requests through ``Engine``: every request
+           finishes, B1 launched once a layer per decode-step call.
+  agree_mllm  each of the two at 1 + 1 + 1 layers of its full widths in
+           fp32: greedy streams of the card's kernel path against the
+           CPU's plain path; the loss and every gradient of one step of the
+           kernel path against the card's plain path (reference attention)
+           and both against the CPU, at agree_hybrid's limits.
+  train_mllm18, train_mllm84  post-balanced AdamW steps at full widths and
+           cut depth (MLLM-18B 6 + 8 + 8 layers, MLLM-84B 1 + 2 + 2), vision
+           drawn up to each config's tokens_per_example_max and packed at
+           downsample 4, 2 instances as the card's 2 streams; the launches
+           held to the expected counts, the peak to 72 GB; then a profiled
+           step each (``_profile``).
+
 Then the ``kernels`` summary line, the card's name and power limit, and
 the final status line.  Exits non-zero, printing no result, when no card
 is present or anything fails.
@@ -172,8 +194,14 @@ TIMED_RUNS = 25
 SPIN_CYCLES = 5_000_000  # a few ms at the H100's clocks: longer than any enqueue here
 
 
+# When this process started: every phase line carries the seconds since
+# (``t_s``), so that a run's lines give its timeline, phase by phase.
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
@@ -237,10 +265,10 @@ def decode_layout(rng, B, S, ctx_lo, ctx_hi):
     return q_seg, kv_seg, q_pos, kv_pos
 
 
-def kernel_cases(rng, train_batch, hybrid_batch):
+def kernel_cases(rng, train_batch, hybrid_batch, mllm_batches):
     """(name, B, H, Hkv, Tq, Tkv, D, dtype, causal, window, seg/pos).  The
-    zamba2 cases run at head_dim 80, which the kernels take zero-padded
-    to 128 (``padded_head_dim``)."""
+    zamba2 cases run at head_dim 80, MLLM-18B's vision at 100, which the
+    kernels take zero-padded to 128 (``padded_head_dim``)."""
     seg_b, pos_b = packed_layout(rng, 1, 4096, 64, 1024)
     seg_c, pos_c = packed_layout(rng, 2, 256, 16, 128)
     seg_d, pos_d = packed_layout(rng, 2, 512, 32, 256)
@@ -265,7 +293,14 @@ def kernel_cases(rng, train_batch, hybrid_batch):
          torch.bfloat16, False, None, (seg_f, seg_f, pos_f, pos_f)),
         ("h_train_step_backbone", seg_h.shape[0], 28, 4, seg_h.shape[1], seg_h.shape[1],
          128, torch.bfloat16, True, None, (seg_h, seg_h, pos_h, pos_h)),
-    ] + hybrid_kernel_cases(rng, hybrid_batch, HYBRID_STATE_SLOTS)
+    ] + hybrid_kernel_cases(rng, hybrid_batch, HYBRID_STATE_SLOTS) + mllm_train_cases(
+        mllm_batches) + [
+        # MLLM-84B's decode: 64 / 8 = 8 heads a group times 8 query rows fill
+        # the packed tile's 64 rows.  Its layout has a generator of its own,
+        # so that the earlier cases' inputs stay those they were.
+        ("n_mllm84_decode", 8, 64, 8, 8, S, 128, torch.bfloat16, True, None,
+         decode_layout(np.random.default_rng(84), 8, S, 64, 320)),
+    ]
 
 
 def hybrid_kernel_cases(rng, hybrid_batch, S):
@@ -279,6 +314,22 @@ def hybrid_kernel_cases(rng, hybrid_batch, S):
          torch.bfloat16, True, None, (seg_j, seg_j, pos_j, pos_j)),
         ("k_zamba2_decode", 8, 32, 32, 8, S, 80, torch.bfloat16, True, None,
          decode_layout(rng, 8, S, SERVE_HYBRID["prompt_lo"], S)),
+    ]
+
+
+def mllm_train_cases(batches):
+    """The paper's MLLM-18B and MLLM-84B at the first training batch of
+    their train phases (2 streams): MLLM-18B's vision encoder (24/24
+    heads of 100, bidirectional, the packed downsample-4 stream) and
+    MLLM-84B's backbone (64/8 heads of 128, causal)."""
+    v18, llm84 = batches["mllm_18b"], batches["mllm_84b"]
+    seg_l, pos_l = v18["enc_vision_seg"], v18["enc_vision_pos"]
+    seg_m, pos_m = llm84["llm_seg"], llm84["llm_pos"]
+    return [
+        ("l_mllm18_vision_train", seg_l.shape[0], 24, 24, seg_l.shape[1], seg_l.shape[1],
+         100, torch.bfloat16, False, None, (seg_l, seg_l, pos_l, pos_l)),
+        ("m_mllm84_train", seg_m.shape[0], 64, 8, seg_m.shape[1], seg_m.shape[1], 128,
+         torch.bfloat16, True, None, (seg_m, seg_m, pos_m, pos_m)),
     ]
 
 
@@ -384,7 +435,7 @@ def live_score_share(mode, blocks, count, mask, H, Hkv):
     return int(mask.sum()) * H / max(walked, 1)
 
 
-def phase_kernels(device, train_batch, hybrid_batch):
+def phase_kernels(device, train_batch, hybrid_batch, mllm_batches):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -400,7 +451,7 @@ def phase_kernels(device, train_batch, hybrid_batch):
     rng = np.random.default_rng(0)
     results = {}
     for name, B, H, Hkv, Tq, Tkv, D, dtype, causal, window, layout in kernel_cases(
-            rng, train_batch, hybrid_batch):
+            rng, train_batch, hybrid_batch, mllm_batches):
         q = torch.tensor(rng.normal(size=(B, H, Tq, D)), dtype=dtype, device=device)
         k = torch.tensor(rng.normal(size=(B, Hkv, Tkv, D)), dtype=dtype, device=device)
         v = torch.tensor(rng.normal(size=(B, Hkv, Tkv, D)), dtype=dtype, device=device)
@@ -508,9 +559,10 @@ def padded_layout(rng, B, T, row, lo):
     return seg.astype(np.int32), pos.astype(np.int32)
 
 
-def bwd_cases(rng, train_batch, hybrid_batch):
+def bwd_cases(rng, train_batch, hybrid_batch, mllm_batches):
     """(name, B, H, Hkv, T, D, dtype, causal, window, seg, pos); zamba2's
-    case at head_dim 80, zero-padded to 128 for the kernels."""
+    case at head_dim 80 and MLLM-18B's vision at 100, zero-padded to 128
+    for the kernels; MLLM-84B's backbone at 64/8 heads of 128."""
     seg_e, pos_e = packed_layout(rng, 1, 4096, 64, 1024)
     seg_f, pos_f = padded_layout(rng, 2, 5 * 1504, 1504, 200)
     seg_g, pos_g = packed_layout(rng, 2, 512, 16, 160)
@@ -528,7 +580,9 @@ def bwd_cases(rng, train_batch, hybrid_batch):
          pos_i),
         ("j_zamba2_train", hybrid_batch["seg"].shape[0], 32, 32, hybrid_batch["seg"].shape[1],
          80, torch.bfloat16, True, None, hybrid_batch["seg"], hybrid_batch["pos"]),
-    ]
+    ] + [(name, B, H, Hkv, Tq, D, dtype, causal, window, seg, pos)
+         for name, B, H, Hkv, Tq, _, D, dtype, causal, window, (seg, _, pos, _)
+         in mllm_train_cases(mllm_batches)]
 
 
 # Scale of the upstream gradient in the backward cases: a loss gradient's
@@ -550,7 +604,7 @@ def sdpa_backward_ms(q, k, v, do, mask):
                      runs=BWD_TIMED_RUNS)
 
 
-def phase_kernels_bwd(device, train_batch, hybrid_batch):
+def phase_kernels_bwd(device, train_batch, hybrid_batch, mllm_batches):
     from repro_torch.kernels.flash_attention import (
         bwd_blocks, bwd_tile_lists, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_dkv, flash_attention_dq, flash_attention_fwd, make_segment_mask,
@@ -559,7 +613,7 @@ def phase_kernels_bwd(device, train_batch, hybrid_batch):
     rng = np.random.default_rng(1)
     results = {}
     for name, B, H, Hkv, T, D, dtype, causal, window, seg, pos in bwd_cases(
-            rng, train_batch, hybrid_batch):
+            rng, train_batch, hybrid_batch, mllm_batches):
         def rand(*shape, scale=1.0):
             return torch.tensor(rng.normal(size=shape) * scale, dtype=dtype, device=device)
 
@@ -628,8 +682,14 @@ def phase_kernels_bwd(device, train_batch, hybrid_batch):
     return results
 
 
+# The serve phases' engine.  Its prefill is a loop of the decode step over
+# the prompt positions, on the host, so its calls set the serve phases'
+# time: all eight prompts are admitted in one step (token_budget) and
+# prefilled as one padded group (prefill_waste), 287 decode-step calls for
+# SERVE_REQUESTS' trace where token_budget 1024 and the default waste took
+# 671.  The greedy streams are the same either way.
 SERVE_ENGINE = dict(block_size=16, num_blocks=257, max_num_seqs=8, max_model_len=512,
-                    token_budget=1024)
+                    token_budget=4096, prefill_waste=100.0)
 SERVE_REQUESTS = dict(n=8, max_total_len=256, length_scale=8, max_new_lo=16,
                       max_new_hi=32)
 
@@ -673,7 +733,7 @@ def check_streams(requests, vocab):
                                f"{r.output_tokens} (max_new {r.max_new_tokens})")
 
 
-def phase_serve(cfg, params, device):
+def phase_serve(cfg, params, device, phase="serve"):
     from repro_torch.configs import EngineConfig
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.serving import serve_step
@@ -698,10 +758,10 @@ def phase_serve(cfg, params, device):
             "generated_tokens", "wall_s", "throughput_tok_s", "prefill_steps",
             "prefill_ms_mean", "prefill_s_total", "decode_steps", "decode_ms_mean",
             "decode_s_total", "schedule_s_total", "token_slots")})
-    emit("serve", **fields)
+    emit(phase, **fields)
     print(report.summary(), flush=True)
     if report.n_finished != len(requests) or launches != expected or launches == 0:
-        raise RuntimeError(f"serve phase failed: {fields}")
+        raise RuntimeError(f"{phase} phase failed: {fields}")
     return launches
 
 
@@ -711,7 +771,6 @@ def phase_profile(cfg, params, device, steps=5):
     (device synchronised) and ``steps`` more traced with torch.profiler.
     Device busy = the summed device time of the traced kernels per step
     (kernels on one stream do not overlap)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import EngineConfig
@@ -735,17 +794,29 @@ def phase_profile(cfg, params, device, steps=5):
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         decode_steps()
-    # Kernel rows only: an operator's row repeats its kernels' device time.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    kernels = traced_kernels(prof)
+    busy_ms = sum(ms for _, ms, _ in kernels) / steps
     emit("profile", decode_step_wall_ms=wall_ms, device_busy_ms_per_step=busy_ms,
          device_busy_share=busy_ms / wall_ms,
-         kernels_per_step=sum(e.count for e in kernels) / steps,
-         top_kernels=[{"name": e.key[:80], "ms_per_step":
-                       e.self_device_time_total / 1e3 / steps,
-                       "calls_per_step": e.count / steps} for e in top])
+         kernels_per_step=sum(n for _, _, n in kernels) / steps,
+         top_kernels=[{"name": name[:80], "ms_per_step": ms / steps,
+                       "calls_per_step": n / steps} for name, ms, n in kernels[:8]])
+
+
+def traced_kernels(prof):
+    """(name, device ms, launches) of every kernel in a torch.profiler
+    trace, summed by name and largest first, from the trace's device
+    events: the sums ``key_averages()``'s kernel rows give, without first
+    building a Python event object for every operator and kernel, which
+    takes seconds for a training step's tens of thousands."""
+    from torch.autograd import DeviceType
+
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ms, n = sums.get(e.name(), (0.0, 0))
+            sums[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((name, ms, n) for name, (ms, n) in sums.items()), key=lambda r: -r[1])
 
 
 def _leaves(tree):
@@ -823,22 +894,25 @@ TRAIN = dict(d=2, per=6, steps=7, peak_lr=3e-4, warmup=1, seed=0)
 TRAIN_AGREE = dict(per=2, scale=0.25, seed=5, loss_rel_tol=1e-4, grad_rel_l2_tol=1e-3)
 
 
-def train_cfg(depth, dtype="bfloat16"):
-    """mllm_10b at full widths, ``depth`` = (backbone, vision, audio)
-    layers, on the flash kernels."""
+def train_cfg(depth, dtype="bfloat16", arch="mllm_10b"):
+    """``arch`` (one of the paper's vlm models, mllm_10b by default) at
+    full widths, ``depth`` = (backbone, vision, audio) layers, on the
+    flash kernels."""
     from repro_torch.configs import get_config
 
-    base = get_config("mllm_10b", attention_backend="flash")
+    base = get_config(arch, attention_backend="flash")
     layers = dict(zip(("vision", "audio"), depth[1:]))
     enc = tuple(dataclasses.replace(e, n_layers=layers[e.name]) for e in base.encoders)
     return dataclasses.replace(base, n_layers=depth[0], encoders=enc, dtype=dtype)
 
 
-def train_sampler(rng, per, scale=1.0):
+def train_sampler(rng, per, scale=1.0, vision_max=1024):
     """examples/train_e2e.py's sampler shape (image+text and text-only
-    examples) with audio+text examples added, lengths drawn up to
-    mllm_10b's tokens_per_example_max (vision 1024 in 256-token tiles,
-    audio 1500); ``scale`` shrinks every length."""
+    examples) with audio+text examples added, lengths drawn up to the
+    encoders' tokens_per_example_max (vision ``vision_max`` in 256-token
+    tiles: mllm_10b's 1024 by default; audio 1500); ``scale`` shrinks
+    every length, vision staying a multiple of 4 (MLLM-18B's and
+    MLLM-84B's connectors take 4 vision tokens a row)."""
     from repro_torch.data.synthetic import Example
 
     def n(lo, hi):
@@ -849,7 +923,8 @@ def train_sampler(rng, per, scale=1.0):
         r = rng.random()
         if r < 0.4:
             text = n(128, 768)
-            vision = max(8, int(256 * int(rng.integers(1, 5)) * scale))
+            tiles = int(rng.integers(1, max(1, vision_max // 256) + 1))
+            vision = max(8, int(256 * tiles * scale)) // 4 * 4
             out.append(Example("vqa", text, vision, 0, ("vision", "text")))
         elif r < 0.7:
             out.append(Example("asr", n(64, 384), 0, n(200, 1501), ("audio", "text")))
@@ -1016,7 +1091,6 @@ def phase_train_profile(step_fn, params, opt_state, batch_np, device,
                         phase="train_profile"):
     """One more step traced by torch.profiler: device busy time = the
     summed device time of its kernels (one stream: they do not overlap)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.training.train_step import batch_to_device
@@ -1028,22 +1102,20 @@ def phase_train_profile(step_fn, params, opt_state, batch_np, device,
         step_fn(params, opt_state, batch, lr=TRAIN["peak_lr"] * 0.1)
         torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ms = {name: sum(e.self_device_time_total for e in kernels
-                    if _kernel_of(e.key) == name) / 1e3 for name in _counters()}
+    kernels = traced_kernels(prof)
+    busy_ms = sum(k_ms for _, k_ms, _ in kernels)
+    ms = {name: sum(k_ms for key, k_ms, _ in kernels if _kernel_of(key) == name)
+          for name in _counters()}
     flash = {k: ms[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")}
     grouped = {k: ms[k] for k in ("gmm", "tgmm")}
     scan = {k: ms[k] for k in ("ssm_fwd", "ssm_bwd")}
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     emit(phase, step_wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_busy_share=busy_ms / wall_ms, kernels_per_step=sum(e.count for e in kernels),
+         device_busy_share=busy_ms / wall_ms, kernels_per_step=sum(n for _, _, n in kernels),
          flash_ms=flash, flash_share_of_busy=sum(flash.values()) / busy_ms,
          grouped_ms=grouped, grouped_share_of_busy=sum(grouped.values()) / busy_ms,
          scan_ms=scan, scan_share_of_busy={k: v / busy_ms for k, v in scan.items()},
-         top_kernels=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
-                       "calls": e.count} for e in top])
+         top_kernels=[{"name": name[:80], "ms": k_ms, "calls": n}
+                      for name, k_ms, n in kernels[:10]])
 
 
 def phase_train_agree(device):
@@ -1955,21 +2027,86 @@ def phase_serve_hybrid(device):
     return launches
 
 
+def agree_three_ways(cfg, plain_cfg, params, batch_np, device, a, label):
+    """The loss and every gradient of one step on ``batch_np``, three
+    ways: the CPU's plain path (``cfg``'s backends on CPU tensors), the
+    card's kernel path (``cfg``) and the card's plain path
+    (``plain_cfg``), each on ``params[side]``, launches counted from 0
+    before each.  Gradients stay fp32 on the device that made them and
+    are compared leaf by leaf on the card in fp64 chunks.  The kernel path
+    is held to the card's plain path (the same GEMMs) within ``a``'s
+    loss_rel_tol and grad_rel_l2_tol, and both card paths to the CPU
+    within its loss_rel_tol and cpu_grad_rel_l2_tol; the leaves named
+    ``label``/... are reported apart.  Returns (fields, ok)."""
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import batch_to_device, make_loss_fn
+
+    devices = {"cpu": torch.device("cpu"), "card": device}
+    out = {}
+    for run, side, run_cfg in (("cpu", "cpu", cfg), ("card", "card", cfg),
+                               ("card_plain", "card", plain_cfg)):
+        reset_launches()
+        leaves = tree_leaves(params[side])
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, m = make_loss_fn(run_cfg)(params[side],
+                                        batch_to_device(batch_np, devices[side]))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        out[run] = (loss.detach().cpu().double(), [g.detach() for g in grads],
+                    int(m["tokens"]), read_launches())
+        del loss, grads
+    names = list(_flat_names(params["cpu"]))
+    pairs = (("card", "card_plain"), ("card", "cpu"), ("card_plain", "cpu"))
+    rel = {pair: {} for pair in pairs}
+    for i, name in enumerate(names):
+        # each CPU leaf crosses to the card once, for both card runs
+        grads = {run: out[run][1][i].to(device) for run in out}
+        for got, want in pairs:
+            rel[got, want][name] = _rel_l2_chunked(grads[got], grads[want])
+        del grads
+
+    def compare(got, want):
+        r = rel[got, want]
+        worst = max(r, key=r.get)
+        loss, ref = out[got][0], out[want][0]
+        return {"loss_rel_err": float((loss - ref).abs() / ref.abs()),
+                "worst_leaf": worst, "worst_grad_rel_l2": r[worst],
+                f"{label}_grad_rel_l2": {n: v for n, v in r.items()
+                                         if n.startswith(f"{label}/")}}
+
+    kernels_vs_plain, card_vs_cpu, card_plain_vs_cpu = (compare(*pair) for pair in pairs)
+    lk, gk, tokens, card_launches = out["card"]
+    finite = bool(torch.isfinite(lk)) and all(bool(torch.isfinite(g).all()) for g in gk)
+    expected = expected_train_launches(cfg)
+    fields = dict(tokens=tokens, loss_card=float(lk), loss_cpu=float(out["cpu"][0]),
+                  loss_card_plain=float(out["card_plain"][0]),
+                  kernels_vs_card_plain=kernels_vs_plain, card_vs_cpu=card_vs_cpu,
+                  card_plain_vs_cpu=card_plain_vs_cpu, loss_rel_tol=a["loss_rel_tol"],
+                  grad_rel_l2_tol=a["grad_rel_l2_tol"],
+                  cpu_grad_rel_l2_tol=a["cpu_grad_rel_l2_tol"], leaves=len(names),
+                  finite=finite, card_launches=card_launches, expected_launches=expected,
+                  card_plain_launches=out["card_plain"][3])
+    ok = (finite and card_launches == expected and not any(out["card_plain"][3].values())
+          and max(c["loss_rel_err"] for c in (kernels_vs_plain, card_vs_cpu,
+                                              card_plain_vs_cpu)) <= a["loss_rel_tol"]
+          and kernels_vs_plain["worst_grad_rel_l2"] <= a["grad_rel_l2_tol"]
+          and max(card_vs_cpu["worst_grad_rel_l2"], card_plain_vs_cpu["worst_grad_rel_l2"])
+          <= a["cpu_grad_rel_l2_tol"])
+    return fields, ok
+
+
 def phase_agree_hybrid(device):
     """zamba2 at 4 layers of its full widths (two groups of two Mamba-2
     layers, the shared block after each) in fp32, same weights and
     inputs: greedy streams of the card's kernel path against the port's
-    plain path on the CPU; the loss and every gradient of one step of the
-    kernel path against the port's plain paths on the same card (the
-    scan backend and reference attention, so that both take the same
-    GEMMs) within ``SSM_AGREE``'s tolerances; the kernel path and the
-    card's plain path each against the CPU's plain path within
-    ``HYBRID_AGREE["cpu_grad_rel_l2_tol"]``: the card's plain path parts
-    from the CPU by as much as the kernel path does, so the gap is the
-    two devices' fp32 arithmetic, not the kernels."""
+    plain path on the CPU, and ``agree_three_ways`` of one step, the
+    card's plain path on the scan backend and reference attention (the
+    same GEMMs as the kernel path), at ``HYBRID_AGREE``'s limits: the
+    card's plain path parts from the CPU by as much as the kernel path
+    does, so the gap is the two devices' fp32 arithmetic, not the
+    kernels."""
     from repro_torch.models.model import init_params
-    from repro_torch.training.optimizer import tree_leaves, tree_map
-    from repro_torch.training.train_step import batch_to_device, make_loss_fn
+    from repro_torch.training.optimizer import tree_map
 
     tf32 = set_tf32(False)
     a = HYBRID_AGREE
@@ -1986,55 +2123,15 @@ def phase_agree_hybrid(device):
 
     [(batch_np, _)], caps, _ = train_batches(cfg, 1, per=a["per"], seed=a["seed"],
                                              scale=a["scale"], sampler=text_sampler)
-    out = {}
-    for run, side, run_cfg in (("cpu", "cpu", cfg), ("card", "card", cfg),
-                               ("card_plain", "card", plain_cfg)):
-        reset_launches()
-        leaves = tree_leaves(params[side])
-        for t in leaves:
-            t.requires_grad_(True)
-        loss, m = make_loss_fn(run_cfg)(params[side],
-                                        batch_to_device(batch_np, devices[side]))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        out[run] = (loss.detach().cpu().double(), [g.detach().cpu().double() for g in grads],
-                    int(m["tokens"]), read_launches())
-    names = list(_flat_names(params["cpu"]))
-
-    def compare(got, want):
-        rel = {n: float((x - y).norm() / y.norm().clamp_min(1e-30))
-               for n, x, y in zip(names, got[1], want[1])}
-        worst = max(rel, key=rel.get)
-        return dict(loss_rel_err=float((got[0] - want[0]).abs() / want[0].abs()),
-                    worst_leaf=worst, worst_grad_rel_l2=rel[worst],
-                    shared_grad_rel_l2={n: r for n, r in rel.items()
-                                        if n.startswith("shared_attn/")})
-
-    kernels_vs_plain = compare(out["card"], out["card_plain"])
-    card_vs_cpu = compare(out["card"], out["cpu"])
-    card_plain_vs_cpu = compare(out["card_plain"], out["cpu"])
-    lk, gk, tokens, card_launches = out["card"]
-    finite = bool(torch.isfinite(lk)) and all(bool(torch.isfinite(g).all()) for g in gk)
-    expected = expected_train_launches(cfg)
+    agreed, ok = agree_three_ways(cfg, plain_cfg, params, batch_np, device, a,
+                                  "shared_attn")
     fields = dict(layers=cfg.n_layers, shared_attn_every=cfg.shared_attn_every,
                   dtype=cfg.dtype, streams_equal=not mismatched, mismatched=mismatched,
                   generated=sum(len(t) for t in streams["cpu"]), cap_T=caps.llm,
-                  tokens=tokens, loss_card=float(lk), loss_cpu=float(out["cpu"][0]),
-                  loss_card_plain=float(out["card_plain"][0]),
-                  kernels_vs_card_plain=kernels_vs_plain, card_vs_cpu=card_vs_cpu,
-                  card_plain_vs_cpu=card_plain_vs_cpu,
-                  loss_rel_tol=a["loss_rel_tol"], grad_rel_l2_tol=a["grad_rel_l2_tol"],
-                  cpu_grad_rel_l2_tol=a["cpu_grad_rel_l2_tol"], leaves=len(names),
-                  finite=finite, card_launches=card_launches,
-                  card_plain_launches=out["card_plain"][3], **tf32)
+                  **agreed, **tf32)
     emit("agree_hybrid", **fields)
-    if (mismatched or not finite or card_launches != expected
-            or any(out["card_plain"][3].values())
-            or max(c["loss_rel_err"] for c in (kernels_vs_plain, card_vs_cpu,
-                                               card_plain_vs_cpu)) > a["loss_rel_tol"]
-            or kernels_vs_plain["worst_grad_rel_l2"] > a["grad_rel_l2_tol"]
-            or max(card_vs_cpu["worst_grad_rel_l2"], card_plain_vs_cpu["worst_grad_rel_l2"])
-            > a["cpu_grad_rel_l2_tol"]):
-        raise RuntimeError(f"agree_hybrid failed: {fields} (expected launches {expected})")
+    if mismatched or not ok:
+        raise RuntimeError(f"agree_hybrid failed: {fields}")
 
 
 # ----------------------------------------------------------------------
@@ -2054,7 +2151,11 @@ EXCHANGE_RUNS = 10
 # AdamW moments) left two replicas 6.4 GB under 80 GB; one backbone layer
 # less (233 M parameters, 3.73 GB) leaves them ~14 GB.
 TRAIN_DP_DEPTH = (1, 2, 2)
-TRAIN_DP = dict(steps=3, dtype="float32")
+# Two steps: the second is the first at a nonzero learning rate (warm-up
+# 1), so the replicas are compared after a real update.  A third step
+# (~11 s of time-shared ranks and the reference) was cut when the whole
+# run passed 1,000 s.
+TRAIN_DP = dict(steps=2, dtype="float32")
 
 
 def first_batch_plans(cfg, d):
@@ -2355,6 +2456,142 @@ def phase_train_dp(device, batches):
             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
 
 
+# ----------------------------------------------------------------------
+# The paper's MLLM-18B and MLLM-84B: vision packed at downsample 4,
+# MLLM-18B's vision heads of 100, MLLM-84B's 64/8 backbone heads.
+# ----------------------------------------------------------------------
+MLLM_ARCHS = ("mllm_18b", "mllm_84b")
+# Training depth (backbone, vision, audio) at full widths, sized like
+# mllm_10b's (~4 B parameters, ~16 bytes each with bf16 weights and
+# gradients and fp32 AdamW moments): MLLM-18B 4.04 B of 18.28 B, MLLM-84B
+# 4.19 B of 84.02 B (its embedding and lm_head alone hold 2.49 B).  At
+# 1 + 1 + 1 layers MLLM-84B peaked at 56.12 GB (PERF.md), so it takes a
+# second vision and audio layer (~3.8 GB more with their AdamW state).
+MLLM_TRAIN_DEPTH = {"mllm_18b": (6, 8, 8), "mllm_84b": (1, 2, 2)}
+TRAIN_MLLM = dict(per=6, steps=4, seed=0)
+# The most a training phase may hold at its peak (of the card's 80 GB).
+MLLM_PEAK_LIMIT_GB = 72.0
+# Serving runs the backbone alone (prefill takes text; the modality
+# tokens count only in the engine's cost model), so the serve configs
+# carry no encoders.  MLLM-18B serves all 48 layers (14.77 B parameters,
+# 29.5 GB in bf16); MLLM-84B 24 of its 80 (23.56 B, 47.1 GB; 80 layers
+# would need 145 GB).
+MLLM_SERVE_LAYERS = {"mllm_18b": 48, "mllm_84b": 24}
+# fp32 agreement at 1 layer of each stack at full widths, with
+# agree_hybrid's limits: the kernel path against the card's plain path
+# (reference attention: the same GEMMs) and both against the CPU.  The
+# CPU's fp32 step through MLLM-84B's [8,192, 152,064] lm_head sets the
+# phase's time, so lengths are scaled by 1/16 (2 streams of 256 slots).
+MLLM_AGREE = dict(HYBRID_AGREE, per=2, scale=0.0625, depth=(1, 1, 1), rows=2,
+                  prompt_hi=8, new_tokens=8)
+
+
+def mllm_sampler(cfg):
+    """``train_sampler`` drawing vision up to ``cfg``'s own
+    tokens_per_example_max (MLLM-18B 2,304, MLLM-84B 4,096)."""
+    vision = next(e for e in cfg.encoders if e.name == "vision")
+    return lambda rng, per, scale=1.0: train_sampler(
+        rng, per, scale, vision_max=vision.tokens_per_example_max)
+
+
+def mllm_serve_cfg(arch):
+    """The backbone of ``arch`` at full widths and ``MLLM_SERVE_LAYERS``
+    layers, no encoders, on the flash kernels."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, attention_backend="flash")
+    return dataclasses.replace(cfg, n_layers=MLLM_SERVE_LAYERS[arch], encoders=())
+
+
+def phase_serve_mllm(arch, device):
+    """``SERVE_REQUESTS`` through ``Engine`` on ``mllm_serve_cfg(arch)``
+    (random bf16 weights from a seed): every request finishes, B1 once a
+    layer per decode-step call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    cfg = mllm_serve_cfg(arch)
+    phase = f"serve_{arch.replace('_', '').removesuffix('b')}"
+    torch.cuda.reset_peak_memory_stats(device)
+    params = init_params(cfg, seed=0, device=device)
+    emit(phase, arch=arch, layers=cfg.n_layers, of_layers=get_config(arch).n_layers,
+         encoders=len(cfg.encoders), weights_gb=torch.cuda.memory_allocated(device) / 1e9)
+    launches = phase_serve(cfg, params, device, phase=phase)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_mllm(arch, batches, caps, redraws, device):
+    """``phase_train`` on ``arch`` at ``MLLM_TRAIN_DEPTH``, then one
+    profiled step; the peak must stay within ``MLLM_PEAK_LIMIT_GB``."""
+    cfg = train_cfg(MLLM_TRAIN_DEPTH[arch], arch=arch)
+    phase = f"train_{arch.replace('_', '').removesuffix('b')}"
+    torch.cuda.empty_cache()
+    params, opt_state, step_fn, totals, summary = phase_train(cfg, batches, caps, redraws,
+                                                              device, phase=phase)
+    phase_train_profile(step_fn, params, opt_state, batches[-1][0], device,
+                        phase=f"{phase}_profile")
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(device)
+    emit(phase, peak_allocated_gb=summary["peak_allocated_gb"],
+         peak_limit_gb=MLLM_PEAK_LIMIT_GB,
+         peak_reserved_gb=torch.cuda.max_memory_reserved(device) / 1e9,
+         card_total_gb=total / 1e9, card_free_gb_after=free / 1e9)
+    if summary["peak_allocated_gb"] > MLLM_PEAK_LIMIT_GB:
+        raise RuntimeError(f"{phase}: peak {summary['peak_allocated_gb']:.2f} GB above "
+                           f"{MLLM_PEAK_LIMIT_GB} GB")
+    return totals, summary
+
+
+def phase_agree_mllm(device):
+    """Each of MLLM-18B and MLLM-84B at 1 layer of each stack at full
+    widths in fp32, same weights and inputs: greedy streams of the card's
+    kernel path against the port's plain path on the CPU, and
+    ``agree_three_ways`` of one step on a small orchestrator batch (the
+    card's plain path on reference attention) at ``MLLM_AGREE``'s limits,
+    agree_hybrid's."""
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import tree_map
+
+    tf32 = set_tf32(False)
+    a = MLLM_AGREE
+    devices = {"cpu": torch.device("cpu"), "card": device}
+    failed = []
+    for arch in MLLM_ARCHS:
+        t0 = time.perf_counter()
+        cfg = train_cfg(a["depth"], dtype="float32", arch=arch)
+        plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
+        params = {"card": init_params(cfg, seed=1, device=device)}
+        params["cpu"] = tree_map(lambda t: t.cpu(), params["card"])
+        serve = dict(SERVE_SSM, rows=a["rows"], prompt_hi=a["prompt_hi"],
+                     new_tokens=a["new_tokens"], seed=1)
+        streams = {side: greedy_serve(cfg, p, devices[side], **serve)[0]
+                   for side, p in params.items()}
+        mismatched = [i for i, (x, y) in enumerate(zip(streams["card"], streams["cpu"]))
+                      if x != y]
+        streams_s = time.perf_counter() - t0
+        [(batch_np, _)], caps, _ = train_batches(cfg, 1, per=a["per"], seed=a["seed"],
+                                                 scale=a["scale"], sampler=mllm_sampler(cfg))
+        agreed, ok = agree_three_ways(cfg, plain_cfg, params, batch_np, device, a,
+                                      "encoder_vision")
+        del params
+        torch.cuda.empty_cache()
+        fields = dict(
+            arch=arch, depth=a["depth"], dtype=cfg.dtype,
+            vision_head_dim=cfg.encoders[0].d_model // cfg.encoders[0].n_heads,
+            streams_equal=not mismatched, mismatched=mismatched,
+            generated=sum(len(t) for t in streams["cpu"]), cap_L=caps.llm,
+            enc_in=caps.enc_in, **agreed, streams_s=streams_s,
+            seconds=time.perf_counter() - t0, **tf32)
+        emit("agree_mllm", **fields)
+        if mismatched or not ok:
+            failed.append(fields)
+    if failed:
+        raise RuntimeError(f"agree_mllm failed: {failed}")
+
+
 def _flat_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -2400,8 +2637,14 @@ def main() -> int:
     hybrid_batches, hybrid_caps, hybrid_redraws = train_batches(
         hcfg, TRAIN_HYBRID["steps"], per=TRAIN_HYBRID["per"], seed=TRAIN_HYBRID["seed"],
         sampler=text_sampler)
-    kern = phase_kernels(device, batches[0][0], hybrid_batches[0][0])
-    kern_bwd = phase_kernels_bwd(device, batches[0][0], hybrid_batches[0][0])
+    mllm_train = {}  # arch: (batches, caps, redraws)
+    for arch in MLLM_ARCHS:
+        acfg = train_cfg(MLLM_TRAIN_DEPTH[arch], arch=arch)
+        mllm_train[arch] = train_batches(acfg, TRAIN_MLLM["steps"], per=TRAIN_MLLM["per"],
+                                         seed=TRAIN_MLLM["seed"], sampler=mllm_sampler(acfg))
+    mllm_first = {arch: b[0][0] for arch, (b, _, _) in mllm_train.items()}
+    kern = phase_kernels(device, batches[0][0], hybrid_batches[0][0], mllm_first)
+    kern_bwd = phase_kernels_bwd(device, batches[0][0], hybrid_batches[0][0], mllm_first)
     mcfg = moe_cfg()
     moe_batches, moe_caps, moe_redraws = train_batches(
         mcfg, TRAIN_MOE["steps"], per=TRAIN_MOE["per"], seed=TRAIN_MOE["seed"],
@@ -2465,6 +2708,12 @@ def main() -> int:
                         phase="train_hybrid_profile")
     del params, opt_state, step_fn
     torch.cuda.empty_cache()
+
+    serve_mllm = {arch: phase_serve_mllm(arch, device) for arch in MLLM_ARCHS}
+    train_mllm = {arch: phase_train_mllm(arch, *mllm_train[arch], device)[0]
+                  for arch in MLLM_ARCHS}
+    phase_agree_mllm(device)
+    torch.cuda.empty_cache()
     if "jax" in sys.modules or "repro" in sys.modules:
         raise RuntimeError("the smoke run imported jax or the JAX package")
 
@@ -2521,6 +2770,34 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
         row["train_hybrid_library_ms"] = None
     scan_rows[1]["train_hybrid_kernel_ms"] = hybrid_scan["bwd_kernel_ms"]
+    # the paper's MLLM-18B and MLLM-84B: launches of their serve and train
+    # runs; MLLM-18B's vision (head_dim 100, padded to 128) and MLLM-84B's
+    # backbone (64/8 heads) at their first training batch, MLLM-84B's decode
+    for arch in MLLM_ARCHS:
+        tag = arch.replace("_", "").removesuffix("b")
+        fwd[f"launches_serve_{tag}"] = serve_mllm[arch]
+        for row in (fwd, dq, dkv):
+            row[f"launches_train_{tag}"] = train_mllm[arch][row["name"]]
+    for prefix, key in (("mllm18_vision_train", "l_mllm18_vision_train"),
+                        ("mllm84_train", "m_mllm84_train"),
+                        ("mllm84_decode", "n_mllm84_decode")):
+        fwd.update({f"{prefix}_{k}": kern[key][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        fwd[f"{prefix}_mode"] = kern[key]["mode"]
+    for prefix, key in (("mllm18_vision_train", "l_mllm18_vision_train"),
+                        ("mllm84_train", "m_mllm84_train")):
+        case = kern_bwd[key]
+        for row, kind in ((dq, "dq"), (dkv, "dkv")):
+            err = case["max_abs_err"]
+            row.update({f"{prefix}_max_abs_err": err["dq"] if kind == "dq"
+                        else max(err["dk"], err["dv"]),
+                        f"{prefix}_ms": case[f"{kind}_ms"],
+                        f"{prefix}_plain_ms": case["plain_ms"],
+                        f"{prefix}_bound_ms": case[f"{kind}_bound_ms"],
+                        f"{prefix}_bound_by": case[f"{kind}_bound_by"],
+                        f"{prefix}_library_ms": case["library_ms"]})
+    if kern["n_mllm84_decode"]["mode"] != "packed":
+        raise RuntimeError("MLLM-84B's decode shape did not take the packed mode")
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [fwd, dq, dkv, gmm_row, tgmm_row, *scan_rows]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -17,7 +17,8 @@ from repro_torch.configs.registry import cache_specs, paged_cache_specs
 __all__ = ["ARCHITECTURES", "EncoderConfig", "EngineConfig", "ModelConfig",
            "cache_specs", "get_config", "paged_cache_specs", "with_attention_backend"]
 
-ARCHITECTURES = ("mllm_10b", "granite_moe_3b_a800m", "falcon_mamba_7b", "zamba2_2_7b")
+ARCHITECTURES = ("mllm_10b", "mllm_18b", "mllm_84b", "granite_moe_3b_a800m",
+                 "falcon_mamba_7b", "zamba2_2_7b")
 
 
 def get_config(name: str, *, attention_backend: str | None = None) -> ModelConfig:

@@ -7,8 +7,12 @@ decay of every leaf with ``ndim >= 2`` -- stacked ``[L, D]`` norm scales
 included -- then ``p - lr * delta`` in fp32, cast back).  Where JAX returns
 new trees, the port updates parameters and moments in place and returns
 the same dicts: the full-width model has no memory for a second copy.
-Stacked ``[L, ...]`` leaves are updated one layer slice at a time, which
-bounds the fp32 scratch to one slice.
+Leaves are walked in pieces of at most ``CHUNK_ELEMS`` elements (a
+stacked ``[L, ...]`` leaf layer slice by layer slice, and a slice or an
+unstacked leaf larger than that in row chunks), which bounds every fp32
+temporary to one piece: MLLM-84B's ``[152064, 8192]`` embedding would
+otherwise take 4.98 GB per temporary.  The update is elementwise, so the
+pieces give it bit for bit; the norm sums the pieces' sums.
 """
 from __future__ import annotations
 
@@ -53,9 +57,19 @@ def tree_map(fn, tree: dict) -> dict:
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
-def _slices(t: torch.Tensor):
-    """A stacked leaf as its layer slices (views), any other leaf whole."""
-    return t.unbind(0) if t.dim() >= 3 else (t,)
+# Elements of the largest piece a leaf is walked in (256 MB in fp32).
+CHUNK_ELEMS = 1 << 26
+
+
+def _pieces(t: torch.Tensor):
+    """A leaf as views of at most ``CHUNK_ELEMS`` elements: a stacked
+    leaf (ndim >= 3) as its layer slices, and each slice (or any other
+    leaf) larger than that as chunks of whole rows of its first dim."""
+    for part in (t.unbind(0) if t.dim() >= 3 else (t,)):
+        if part.dim() == 0 or part.numel() <= CHUNK_ELEMS:
+            yield part
+        else:
+            yield from part.split(max(1, CHUNK_ELEMS // part[0].numel()))
 
 
 def cosine_schedule(step, *, peak_lr: float, warmup: int, total: int,
@@ -71,7 +85,7 @@ def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32."""
     total = None
     for leaf in tree_leaves(tree):
-        for part in _slices(leaf):
+        for part in _pieces(leaf):
             sq = torch.sum(torch.square(part.float()))
             total = sq if total is None else total + sq
     return torch.sqrt(total)
@@ -100,7 +114,7 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig, *,
     bc2 = 1 - b2 ** step.float()
     for p, g, mu, nu in _zip_leaves(params, grads, state["mu"], state["nu"]):
         decay = p.dim() >= 2  # decay matrices only (standard practice)
-        for ps, gs, ms, ns in zip(_slices(p), _slices(g), _slices(mu), _slices(nu)):
+        for ps, gs, ms, ns in zip(_pieces(p), _pieces(g), _pieces(mu), _pieces(nu)):
             gf = gs.float() * scale
             ms.copy_(b1 * ms + (1 - b1) * gf)
             ns.copy_(b2 * ns + (1 - b2) * gf * gf)

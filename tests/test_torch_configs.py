@@ -1,6 +1,7 @@
-"""The port's config copies equal the JAX package's: mllm_10b and its
-``smoke()`` field by field and in ``param_count()``, the serving cost
-model, and the paged cache specs' shapes and dtypes."""
+"""The port's config copies equal the JAX package's: every architecture
+the port carries and its ``smoke()`` field by field and in
+``param_count()`` (MLLM-84B's pipeline-staged variant too), the serving
+cost model, and the paged cache specs' shapes and dtypes."""
 import dataclasses
 
 import numpy as np
@@ -27,6 +28,32 @@ def test_configs_equal_field_by_field(arch):
         assert mine.param_count() == ref.param_count(), label
         assert mine.active_param_count() == ref.active_param_count(), label
         assert mine.head_dim_ == ref.head_dim_ and mine.decode_backend == ref.decode_backend
+
+
+def test_mllm_84b_staged_config_equal_field_by_field():
+    """``STAGED_CONFIG``: MLLM-84B over 4 pipeline stages, 16 microbatches,
+    bubble fill; the orchestrator plans with it."""
+    from repro.configs.mllm_84b import STAGED_CONFIG as JAX_STAGED
+    from repro_torch.configs.mllm_84b import CONFIG, STAGED_CONFIG
+
+    assert dataclasses.asdict(STAGED_CONFIG) == dataclasses.asdict(JAX_STAGED)
+    assert STAGED_CONFIG.param_count() == JAX_STAGED.param_count()
+    assert (STAGED_CONFIG.pp_stages, STAGED_CONFIG.pp_microbatches,
+            STAGED_CONFIG.pp_bubble_fill) == (4, 16, True)
+    assert dataclasses.replace(STAGED_CONFIG, pp_stages=1, pp_microbatches=0) == CONFIG
+
+
+@pytest.mark.parametrize("arch,widths", [
+    ("mllm_18b", (48, 5120, 40, 8, 128, 13824, (100, 4), (64, 2))),
+    ("mllm_84b", (80, 8192, 64, 8, 128, 29568, (128, 4), (128, 4))),
+])
+def test_paper_mllm_widths(arch, widths):
+    """Backbone depth, width, heads, head dim and d_ff, and each encoder's
+    (head dim, downsample): vision head dim 100 on MLLM-18B."""
+    cfg = get_config(arch)
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.d_ff,
+           *((e.d_model // e.n_heads, e.downsample) for e in cfg.encoders))
+    assert got == widths and cfg.vocab_size == 152064 and cfg.family == "vlm"
 
 
 def test_mllm_10b_widths():

@@ -14,6 +14,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import EngineConfig as JaxEngineConfig
 from repro.configs import get_config as jax_get_config
@@ -29,6 +30,18 @@ from repro_torch.serving.engine import Engine, requests_from_examples
 ENGINE = dict(block_size=16, num_blocks=65, max_num_seqs=4, max_model_len=128)
 N_REQUESTS = 6
 SEED = 0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's side in one intra-op thread, restored after the module.
+    Under pytest-xdist several test processes share the cores, and at
+    these sizes a pool of threads per process spends its time waiting for
+    its threads to be scheduled."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _trace(sample, make, vocab):

@@ -10,8 +10,9 @@ nvcc here, so the tile sizes are read from the CUDA source instead:
   the lists of the mode the wrapper picks must hold every tile pair that
   holds an unmasked score, each list ascending and padded past its count;
 * the wrapper packs a GQA group's query rows into one tile when
-  ``H // Hkv * Tq`` fits it (the decode shapes of mllm_10b and granite),
-  and tiles otherwise (training);
+  ``H // Hkv * Tq`` fits it (the decode shapes of mllm_10b, MLLM-18B,
+  MLLM-84B -- 8 x 8 = 64 rows, the tile exactly -- and granite), and
+  tiles otherwise (training; a group of 9 at decode);
 * the packed view ``[B * Hkv, g * Tq, D]`` of q, with row r read as query
   head ``r // Tq`` at row ``r % Tq``, gives exactly
   ``flash_attention_plain``'s out and lse.
@@ -56,10 +57,14 @@ def _layout(name, rng):
         return 2, 12, 4, 64, True, 96, (seg, seg, pos, pos)
     if name == "decode_ragged_cache":
         return 3, 28, 4, 128, True, None, _decode_layout(rng, 3, 1000)
+    if name == "decode_mllm_84b":  # g = 8 at Tq 8: the packed tile's 64 rows
+        return 3, 64, 8, 128, True, None, _decode_layout(rng, 3, 600)
+    if name == "decode_g9":  # 72 rows do not fit: tiled
+        return 2, 72, 8, 128, True, None, _decode_layout(rng, 2, 300)
     return _case(name, rng)
 
 
-LAYOUTS = [*CASES, "ragged_window", "decode_ragged_cache"]
+LAYOUTS = [*CASES, "ragged_window", "decode_ragged_cache", "decode_mllm_84b", "decode_g9"]
 
 
 def test_source_tiles_fit_the_kernels():
@@ -81,7 +86,8 @@ def test_forward_lists_hold_every_unmasked_pair(name, dtype):
     kw = dict(causal=causal, window=window)
     blocks = TILES[dtype]
     mode = tfa.fwd_mode(H, Hkv, Tq, blocks)
-    assert mode == ("packed" if dtype == "bf16" and name.startswith("decode") else "tiled")
+    packs = dtype == "bf16" and name.startswith("decode") and name != "decode_g9"
+    assert mode == ("packed" if packs else "tiled")
     count, idx = tfa.fwd_tile_lists(*ints, mode=mode, blocks=blocks, **kw)
     bq = Tq if mode == "packed" else blocks["tiled"][0]
     bk = blocks[mode][1]
@@ -102,6 +108,9 @@ DECODE_TQ = 8
 @pytest.mark.parametrize("arch,Tq,dtype,mode", [
     ("mllm_10b", DECODE_TQ, "bf16", "packed"),              # 7 x 8 = 56 rows
     ("granite_moe_3b_a800m", DECODE_TQ, "bf16", "packed"),  # 3 x 8 = 24 rows
+    ("mllm_18b", DECODE_TQ, "bf16", "packed"),              # 5 x 8 = 40 rows
+    ("mllm_84b", DECODE_TQ, "bf16", "packed"),              # 8 x 8 = 64 rows: full
+    ("mllm_84b", 4096, "bf16", "tiled"),
     ("mllm_10b", 7680, "bf16", "tiled"),                    # a training stream
     ("granite_moe_3b_a800m", 6656, "bf16", "tiled"),
     ("mllm_10b", DECODE_TQ, "fp32", "tiled"),               # fp32: no packed mode
@@ -114,6 +123,8 @@ def test_mode_choice_at_the_main_paths_shapes(arch, Tq, dtype, mode):
 @pytest.mark.parametrize("H,Hkv,Tq,mode", [
     (8, 1, 8, "packed"),   # g * Tq = 64: one full packed tile
     (8, 1, 9, "tiled"),    # 72 rows do not fit
+    (64, 8, 8, "packed"),  # MLLM-84B's decode: g = 8, Tq 8
+    (72, 8, 8, "tiled"),   # g = 9: 72 rows
     (20, 20, 64, "packed"),  # MHA: g = 1
     (20, 20, 65, "tiled"),
 ])
@@ -149,7 +160,7 @@ def _packed_view_attention(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *, causal, win
 
 
 @pytest.mark.parametrize("name", ["decode_q1_padded_to_8", "decode_ragged_cache",
-                                  "short_causal_stream"])
+                                  "decode_mllm_84b", "short_causal_stream"])
 def test_packed_row_mapping_reproduces_plain(name):
     rng = np.random.default_rng(11)
     if name == "short_causal_stream":  # several live query rows a head

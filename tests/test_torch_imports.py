@@ -37,6 +37,9 @@ HYBRID_SLICE = {
     "repro_torch.configs.zamba2_2_7b", "repro_torch.models.decode",
     "repro_torch.models.transformer",
 }
+# The paper-models slice's modules: the port's own MLLM-18B / MLLM-84B.
+MLLM_PAPER_SLICE = {"repro_torch.configs.mllm_18b", "repro_torch.configs.mllm_84b",
+                    "repro_torch.training.optimizer"}
 # The data-parallel slice's modules.
 DP_SLICE = {
     "repro_torch.core.communicator", "repro_torch.launch.mesh",
@@ -103,3 +106,9 @@ def test_dp_slice_modules_are_in_the_walk():
     modules: the communicator's device half, the DP group and the
     launcher."""
     assert DP_SLICE <= set(_modules())
+
+
+def test_mllm_paper_slice_modules_are_in_the_walk():
+    """The import walk of the first test reaches the port's copies of the
+    paper's MLLM-18B and MLLM-84B configs."""
+    assert MLLM_PAPER_SLICE <= set(_modules())

@@ -6,23 +6,34 @@ key, dtype, shape and value) and the same reports, apart from the
 host-clock timings (``*_ms``) that no two runs share.  Cases cover the
 mllm_10b multimodal packing (vision packed, audio padded), the text-only
 packing, the pre-balancing baseline, node-wise rearrangement and the
-pipeline schedule.
+pipeline schedule, and the paper's MLLM-18B and MLLM-84B: a packed
+vision stream at downsample 4 (examples aligned to 4 encoder tokens),
+MLLM-84B's audio padded at downsample 4 and its ``STAGED_CONFIG``
+pipeline plan (4 stages, 16 microbatches, bubble fill).  Where a case
+names an ``exchange`` encoder, the port's single-process ``gather``
+exchange of that stream's connector tokens must equal the numpy oracle
+of ``test_torch_dp.py``.
 """
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs.mllm_84b import STAGED_CONFIG as JAX_STAGED_CONFIG
 from repro.core import cost_model as jcm
 from repro.core.orchestrator import MLLMGlobalOrchestrator as JaxOrchestrator
 from repro.data.synthetic import sample_examples as jax_sample_examples
 from repro.sharding.specs import stage_partition as jax_stage_partition
 from repro_torch.configs import get_config
+from repro_torch.configs.mllm_84b import STAGED_CONFIG
 from repro_torch.core import cost_model as tcm
+from repro_torch.core.communicator import apply_comm_plan, plan_to_device
 from repro_torch.core.orchestrator import MLLMGlobalOrchestrator
 from repro_torch.data.synthetic import sample_examples
 from repro_torch.sharding.specs import stage_partition
+from test_torch_dp import reference_exchange
 
 CASES = {
     "mllm_10b_d4": dict(d=4, per=6),
@@ -30,11 +41,18 @@ CASES = {
     "mllm_10b_nodewise": dict(d=4, per=6, kw=dict(instances_per_node=2)),
     "mllm_10b_pipeline": dict(d=2, per=8, kw=dict(pp=4, microbatches=8)),
     "text_only_d4": dict(d=4, per=6, text_only=True),
+    "mllm_18b_d4": dict(d=4, per=6, arch="mllm_18b", exchange="vision"),
+    "mllm_18b_d2": dict(d=2, per=8, arch="mllm_18b", exchange="vision"),
+    "mllm_84b_d4": dict(d=4, per=6, arch="mllm_84b", exchange="vision"),
+    "mllm_84b_staged_pipeline": dict(d=2, per=8, arch="mllm_84b", staged=True),
 }
 
 
 def _cfgs(case):
-    tcfg, jcfg = get_config("mllm_10b"), jax_get_config("mllm_10b")
+    arch = case.get("arch", "mllm_10b")
+    tcfg, jcfg = get_config(arch), jax_get_config(arch)
+    if case.get("staged"):
+        tcfg, jcfg = STAGED_CONFIG, JAX_STAGED_CONFIG
     if case.get("text_only"):
         tcfg = dataclasses.replace(tcfg, encoders=())
         jcfg = dataclasses.replace(jcfg, encoders=())
@@ -95,6 +113,39 @@ def test_batches_and_reports_bit_identical(name):
         batch_j, rep_j = ref.plan_and_pack(ex_j, caps_j, np.random.default_rng(it))
         _assert_same(batch_t, batch_j, "batch")
         _assert_same(_report_dict(rep_t), _report_dict(rep_j))
+        if case.get("staged"):
+            pipe = rep_t.pipeline.to_dict()
+            assert (pipe["pp"], pipe["n_micro"], pipe["bubble_fill"]) == (4, 16, True)
+
+
+@pytest.mark.parametrize("name", sorted(n for n in CASES if CASES[n].get("exchange")))
+def test_gather_exchange_matches_numpy_oracle(name):
+    """The single-process ``gather`` exchange of a packed downsample-4
+    stream: random connector tokens at the plan's source capacity (the
+    encoder stream's over the downsample) land where the numpy oracle
+    places each example, zeros elsewhere, bit for bit; so does the
+    gradient sent back through it."""
+    case = CASES[name]
+    tcfg, _ = _cfgs(case)
+    d, per = case["d"], case["per"]
+    enc = next(e for e in tcfg.encoders if e.name == case["exchange"])
+    assert enc.downsample == 4 and not enc.padded
+    orch = MLLMGlobalOrchestrator(tcfg, d)
+    caps = orch.default_capacities(_draw(sample_examples, d, per, 0, False), margin=3.0)
+    plans = orch.plan_phases(_draw(sample_examples, d, per, 10, False), caps)
+    plan, pi = plans.comm_plans[enc.name], plans.composed[enc.name]
+    assert plan.cap_in == caps.enc_in[enc.name] // 4 and int(plan.post_mask.sum()) > 0
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((d * plan.cap_in, 8), generator=gen, requires_grad=True)
+    y = apply_comm_plan(x, plan_to_device(plan, "cpu"), None, mode="gather")
+    want = reference_exchange(pi, x.detach().numpy(), plan.cap_in, plan.cap_out)
+    np.testing.assert_array_equal(y.detach().numpy(), want)
+    w = torch.randn(y.shape, generator=gen)
+    (g,) = torch.autograd.grad(y, x, grad_outputs=w)
+    back = np.zeros_like(want)
+    np.add.at(back, plan.global_gather.reshape(-1)[plan.post_mask.reshape(-1)],
+              w.numpy()[plan.post_mask.reshape(-1)])
+    np.testing.assert_array_equal(g.numpy(), back[:d * plan.cap_in])
 
 
 def test_cost_models_and_stage_partition_equal():

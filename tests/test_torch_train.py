@@ -260,3 +260,44 @@ def test_moe_loss_gradients_and_metrics_match_jax():
     errs = {n: _rel_l2(g.numpy(), jgrads[n]) for n, g in zip(names, grads)}
     worst = max(errs, key=errs.get)
     assert errs[worst] <= GRAD_REL_L2, (worst, errs[worst])
+
+
+def test_adamw_walk_in_chunks_matches_whole_slices(monkeypatch):
+    """Leaves larger than ``CHUNK_ELEMS`` are walked in row chunks (an
+    unstacked [V, D] embedding, a stacked leaf's slices, a long vector):
+    the AdamW update is elementwise, so parameters and moments come out
+    bitwise equal to one pass over each whole slice; the global norm sums
+    the chunks' sums, within rtol 1e-6.  The clip is set above the norm:
+    its scale would carry the norm's last-bit difference into every
+    element."""
+    rng = np.random.default_rng(3)
+
+    def tree():
+        return {"embed": rng.normal(size=(300, 7)).astype(np.float32),
+                "layers": {"w": rng.normal(size=(2, 50, 7)).astype(np.float32),
+                           "attn_norm": rng.normal(size=(2, 8)).astype(np.float32)},
+                "bias": rng.normal(size=(200,)).astype(np.float32)}
+
+    p0, grads = tree(), [tree() for _ in range(2)]
+    runs = {}
+    for chunk in (1 << 26, 64):
+        monkeypatch.setattr(topt, "CHUNK_ELEMS", chunk)
+        if chunk == 64:  # every leaf but the norm scales is cut in pieces
+            for name in ("embed", "bias"):
+                assert len(list(topt._pieces(torch.from_numpy(p0[name])))) > 1
+            assert len(list(topt._pieces(torch.from_numpy(p0["layers"]["w"])))) > 2
+        params = params_from_numpy(p0, device="cpu")
+        state = topt.adamw_init(params)
+        norms = []
+        for g in grads:
+            params, state, m = topt.adamw_update(
+                params, params_from_numpy(g, device="cpu"), state,
+                topt.AdamWConfig(lr=1e-2, clip_norm=1e3))
+            norms.append(float(m["grad_norm"]))
+            assert norms[-1] < 1e3
+        runs[chunk] = (params, state, norms)
+    (pw, sw, nw), (pc, sc, nc) = runs[1 << 26], runs[64]
+    np.testing.assert_allclose(nc, nw, rtol=1e-6)
+    for whole, chunked in ((pw, pc), (sw["mu"], sc["mu"]), (sw["nu"], sc["nu"])):
+        for name, a in _flat(whole).items():
+            assert torch.equal(a, _flat(chunked)[name]), name
